@@ -1,0 +1,106 @@
+"""Checkpoints in the JAX package's npz layout (port of
+uresnet_tpu/engine/checkpoint.py).
+
+A checkpoint is one ``step_<N>.npz`` holding every leaf of a nested-dict
+tree keyed by its '/'-joined path, written to a temp file and atomically
+renamed, with a ``LATEST`` marker and retention. A JAX training
+checkpoint stores ``train_state/params/...``, ``train_state/model_state/...``
+(BN running stats), ``train_state/opt/...``, ``train_state/key`` and
+``meta/{step,data_cursor}``; serving reads the first two and ignores the
+optimizer and PRNG leaves. Release artifacts (tools/make_release_ckpt.py)
+store bf16 kernels as uint16 bit patterns listed in ``__kernels_bf16__``;
+they are re-viewed as bfloat16 by torch, without ml_dtypes.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from uresnet_tpu_torch.models.convert import flatten_tree, unflatten_tree
+
+PARAMS_PREFIX = "train_state/params/"
+STATE_PREFIX = "train_state/model_state/"
+MAX_TO_KEEP = 5  # checkpoints kept in a directory, as the JAX default
+
+
+def train_state_tree(params: Dict[str, Any], state: Dict[str, Any],
+                     step: int) -> Dict[str, Any]:
+    """The serving part of a JAX train-state checkpoint tree: params, BN
+    state and meta, with data cursor 0 (JAX ``load_checkpoint(partial=True)``
+    fills the rest)."""
+    return {"train_state": {"params": params, "model_state": state},
+            "meta": {"step": np.int64(step),
+                     "data_cursor": np.int64(0)}}
+
+
+def save_checkpoint(directory: str, step: int, tree: Dict[str, Any]) -> str:
+    """Write a nested dict of numpy arrays as ``step_<N>.npz``, keeping the
+    newest `MAX_TO_KEEP`."""
+    os.makedirs(directory, exist_ok=True)
+    arrays = {k.replace(".", "/"): np.asarray(v)
+              for k, v in flatten_tree(tree).items()}
+    final = os.path.join(directory, f"step_{step:08d}.npz")
+    tmp = final + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, final)
+    with open(os.path.join(directory, "LATEST.tmp"), "w") as f:
+        f.write(os.path.basename(final))
+    os.replace(os.path.join(directory, "LATEST.tmp"),
+               os.path.join(directory, "LATEST"))
+    cands = sorted(f for f in os.listdir(directory)
+                   if re.fullmatch(r"step_\d+\.npz", f))
+    for old in cands[:-MAX_TO_KEEP]:
+        try:
+            os.remove(os.path.join(directory, old))
+        except OSError:
+            pass
+    return final
+
+
+def latest_checkpoint(directory: str) -> Optional[str]:
+    marker = os.path.join(directory, "LATEST")
+    if os.path.exists(marker):
+        with open(marker) as f:
+            name = f.read().strip()
+        path = os.path.join(directory, name)
+        if os.path.exists(path):
+            return path
+    if not os.path.isdir(directory):
+        return None
+    cands = sorted(f for f in os.listdir(directory)
+                   if re.fullmatch(r"step_\d+\.npz", f))
+    return os.path.join(directory, cands[-1]) if cands else None
+
+
+def checkpoint_step(path: str) -> int:
+    m = re.search(r"step_(\d+)\.npz$", path)
+    if not m:
+        raise ValueError(f"not a checkpoint path: {path}")
+    return int(m.group(1))
+
+
+def load_serving_state(path: str) -> Tuple[Dict[str, Any], Dict[str, Any], int]:
+    """Read the params and BN-state leaves of a JAX checkpoint npz as
+    (params, state) trees of CPU tensors (for models/convert.py
+    ``load_jax_params``), and its ``meta/step`` (0 when absent)."""
+    with np.load(path) as z:
+        stored = {k: z[k] for k in z.files}
+    bf16_keys = {str(k) for k in stored.pop("__kernels_bf16__", ())}
+    step = int(stored.get("meta/step", 0))
+    params, state = {}, {}
+    for key, arr in stored.items():
+        for prefix, dst in ((PARAMS_PREFIX, params), (STATE_PREFIX, state)):
+            if key.startswith(prefix):
+                t = torch.from_numpy(np.array(arr))
+                if key in bf16_keys:
+                    t = t.view(torch.bfloat16)
+                dst[key[len(prefix):].replace("/", ".")] = t
+    if not params:
+        raise KeyError(f"{path!r} holds no {PARAMS_PREFIX}* leaves")
+    return unflatten_tree(params), unflatten_tree(state), step

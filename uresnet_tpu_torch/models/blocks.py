@@ -1,0 +1,114 @@
+"""U-ResNet building blocks as nn.Modules (port of uresnet_tpu/models/blocks.py).
+
+  residual block = conv3-BN-ReLU -> conv3-BN, projection shortcut (1x1 conv)
+  on channel mismatch, add, ReLU;
+  downsample = stride-2 conv3 + BN + ReLU;
+  upsample = stride-2 transpose conv + BN + ReLU.
+
+Parameter and buffer names follow the JAX param/state trees
+(``cb1.conv.w``, ``cb1.bn.scale``, buffer ``cb1.bn.mean``), so a module's
+state dict and a JAX checkpoint name the same leaves (models/convert.py).
+Eval forward only.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+from torch import nn
+
+from uresnet_tpu_torch.ops.conv import conv, conv_init, conv_transpose
+from uresnet_tpu_torch.ops.norm import batch_norm, bn_init
+
+
+@dataclass(frozen=True)
+class BlockCtx:
+    """Static per-call context: dims, compute dtype, BN eps."""
+
+    dims: int = 2
+    compute_dtype: torch.dtype = torch.bfloat16
+    bn_eps: float = 1e-3
+
+    def conv(self, x, p, stride=1):
+        return conv(x, p, stride=stride, dims=self.dims,
+                    compute_dtype=self.compute_dtype)
+
+    def conv_t(self, x, p, stride=2):
+        return conv_transpose(x, p, stride=stride, dims=self.dims,
+                              compute_dtype=self.compute_dtype)
+
+
+class Conv(nn.Module):
+    """Kernel ``w`` (kH, kW, C_in, C_out) and optional bias ``b``."""
+
+    def __init__(self, kernel: int, in_ch: int, out_ch: int, *,
+                 generator: torch.Generator, dims: int, use_bias: bool,
+                 param_dtype: torch.dtype,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        for k, v in conv_init(generator, kernel, in_ch, out_ch, dims=dims,
+                              use_bias=use_bias, param_dtype=param_dtype,
+                              device=device).items():
+            self.register_parameter(k, nn.Parameter(v))
+
+    def params(self) -> dict:
+        return dict(self.named_parameters())
+
+
+class BatchNorm(nn.Module):
+    """Affine params ``scale``/``bias``; running stats as buffers."""
+
+    def __init__(self, ch: int, *, param_dtype: torch.dtype,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        params, state = bn_init(ch, param_dtype, device)
+        for k, v in params.items():
+            self.register_parameter(k, nn.Parameter(v))
+        for k, v in state.items():
+            self.register_buffer(k, v)
+
+    def forward(self, x, ctx: BlockCtx):
+        return batch_norm(x, dict(self.named_parameters()),
+                          dict(self.named_buffers()), eps=ctx.bn_eps)
+
+
+class ConvBN(nn.Module):
+    def __init__(self, kernel: int, in_ch: int, out_ch: int, *,
+                 generator: torch.Generator, dims: int,
+                 param_dtype: torch.dtype,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        self.conv = Conv(kernel, in_ch, out_ch, generator=generator,
+                         dims=dims, use_bias=False, param_dtype=param_dtype,
+                         device=device)
+        self.bn = BatchNorm(out_ch, param_dtype=param_dtype, device=device)
+
+    def forward(self, x, ctx: BlockCtx, *, stride=1, relu=True,
+                transpose=False):
+        if transpose:
+            y = ctx.conv_t(x, self.conv.params(), stride=stride)
+        else:
+            y = ctx.conv(x, self.conv.params(), stride=stride)
+        y = self.bn(y, ctx)
+        return torch.relu(y) if relu else y
+
+
+class ResBlock(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, *, generator: torch.Generator,
+                 dims: int, param_dtype: torch.dtype,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        kw = dict(generator=generator, dims=dims, param_dtype=param_dtype,
+                  device=device)
+        self.cb1 = ConvBN(3, in_ch, out_ch, **kw)
+        self.cb2 = ConvBN(3, out_ch, out_ch, **kw)
+        self.proj = (Conv(1, in_ch, out_ch, use_bias=False, **kw)
+                     if in_ch != out_ch else None)
+
+    def forward(self, x, ctx: BlockCtx):
+        y = self.cb1(x, ctx)
+        y = self.cb2(y, ctx, relu=False)
+        shortcut = x if self.proj is None else ctx.conv(x, self.proj.params())
+        return torch.relu(y + shortcut.to(y.dtype))

@@ -1,0 +1,76 @@
+"""Weights and BN state between a JAX param/state tree and a UResNet module.
+
+The JAX package keeps params and BN running stats as nested dicts keyed
+by unit name (``params['enc0_b0']['cb1']['conv']['w']``,
+``state['enc0_b0']['cb1']['bn']['mean']``). The module names its
+parameters and buffers the same way with dots, so the mapping is the key
+path: parameters <-> params tree, buffers <-> state tree.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+Tree = Dict[str, Any]
+
+
+def flatten_tree(tree: Tree, prefix: str = "") -> Dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def unflatten_tree(flat: Dict[str, Any]) -> Tree:
+    tree: Tree = {}
+    for dotted, v in flat.items():
+        *parents, leaf = dotted.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def trees(model: nn.Module) -> Tuple[Tree, Tree]:
+    """(params, state) trees of the module's own tensors (no copies)."""
+    return (unflatten_tree({k: v.detach() for k, v in model.named_parameters()}),
+            unflatten_tree(dict(model.named_buffers())))
+
+
+def jax_params(model: nn.Module) -> Tuple[Tree, Tree]:
+    """(params, state) as trees of numpy arrays: the JAX package's
+    ``uresnet_init`` layout, ready for its checkpoint or apply."""
+    return tuple(unflatten_tree({k: v.cpu().numpy() for k, v in flatten_tree(t).items()})
+                 for t in trees(model))
+
+
+@torch.no_grad()
+def load_jax_params(model: nn.Module, params: Tree, state: Tree) -> None:
+    """Copy a JAX (params, state) tree — numpy arrays or tensors — into the
+    module, cast to each destination's dtype. Every parameter and buffer
+    must be given, with its shape; extra or missing leaves raise."""
+    for kind, src, dst in (("param", flatten_tree(params),
+                            dict(model.named_parameters())),
+                           ("state", flatten_tree(state),
+                            dict(model.named_buffers()))):
+        if src.keys() != dst.keys():
+            missing = sorted(dst.keys() - src.keys())
+            extra = sorted(src.keys() - dst.keys())
+            raise KeyError(f"{kind} tree does not match the model: missing "
+                           f"{missing[:5]}, unexpected {extra[:5]}")
+        for k, t in dst.items():
+            v = src[k]
+            if not torch.is_tensor(v):
+                v = torch.from_numpy(np.array(v))
+            if tuple(v.shape) != tuple(t.shape):
+                raise ValueError(f"{kind} {k!r}: shape {tuple(v.shape)} != "
+                                 f"model {tuple(t.shape)}")
+            t.copy_(v)
