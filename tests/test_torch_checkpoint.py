@@ -59,7 +59,7 @@ def test_jax_checkpoint_served_by_port(jax_ckpt):
     assert step == 42
     want, _ = uresnet_apply(ts.params, ts.model_state, x, cfg=CFG, train=False)
     with torch.no_grad():
-        got = model(torch.from_numpy(x))
+        got, _ = model(torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
 

@@ -1,5 +1,6 @@
 """The port never imports jax: importing the package and every module of
-the serving slice, in a fresh interpreter, leaves jax out of sys.modules."""
+the serving and training slices, in a fresh interpreter, leaves jax out of
+sys.modules."""
 
 import os
 import subprocess
@@ -23,6 +24,13 @@ MODULES = [
     "uresnet_tpu_torch.engine.export",
     "uresnet_tpu_torch.engine.evaluator",
     "uresnet_tpu_torch.cli.infer",
+    "uresnet_tpu_torch.data.device_pipeline",
+    "uresnet_tpu_torch.data.prefetch",
+    "uresnet_tpu_torch.engine.losses",
+    "uresnet_tpu_torch.engine.optim",
+    "uresnet_tpu_torch.engine.augment",
+    "uresnet_tpu_torch.engine.trainer",
+    "uresnet_tpu_torch.cli.train",
 ]
 
 

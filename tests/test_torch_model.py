@@ -45,10 +45,12 @@ def test_eval_forward_matches_jax(pair):
     params, state, model, x = pair
     want, _ = uresnet_apply(params, state, x, cfg=CFG, train=False)
     with torch.no_grad():
-        got = model(torch.from_numpy(x))
+        got, got_state = model(torch.from_numpy(x))
     assert got.dtype == torch.float32 and got.shape == (2, 16, 16, 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
+    # eval mode hands back the running stats themselves
+    assert got_state["stem"]["bn"]["mean"] is model.stem.bn.mean
 
 
 def test_jax_params_roundtrip(pair):

@@ -2,15 +2,28 @@
 
 The JAX package ``uresnet_tpu`` is the reference this port is held against
 (tests/test_torch_*.py). The port reuses the JAX package's jax-free host
-modules by import — the typed config and the sparse-event data plane
-(``uresnet_tpu.config``, ``uresnet_tpu.data.{events,pipeline,synthetic}``) —
-and re-exports the ones its callers need here, so a user of the port
-imports one package. Nothing in this package imports jax.
+modules by import — the typed config, the sparse-event data plane and
+loaders, the metrics logger (``uresnet_tpu.config``,
+``uresnet_tpu.data.{events,pipeline,synthetic,loader,pset_compat,cxx_decoder}``,
+``uresnet_tpu.engine.{logging,tb_writer}``) — and re-exports the ones its
+callers need here, so a user of the port imports one package. Nothing in
+this package imports jax.
 
-Ported so far: the BN-folded serving path (``cli/infer.py`` ->
-``engine/evaluator.py`` -> ``engine/export.py`` -> ``models/fold.py``), whose
-3x3 residual-block convs run through a hand-written CUDA kernel
-(``csrc/conv2d.cu``, ``ops/cuda/conv2d.py``).
+Ported so far:
+
+* the BN-folded serving path (``cli/infer.py`` -> ``engine/evaluator.py``
+  -> ``engine/export.py`` -> ``models/fold.py``), whose 3x3 residual-block
+  convs run through a hand-written CUDA kernel (``csrc/conv2d.cu``,
+  ``ops/cuda/conv2d.py``, bound to both Pallas entry points);
+* the 2D training path (``cli/train.py`` -> ``engine/trainer.py``):
+  sparse batches staged by ``data/prefetch.py`` and densified on the device
+  (``data/device_pipeline.py``, ``engine/augment.py``), the train-mode
+  forward with TF1 BatchNorm and activation checkpointing
+  (``models/uresnet.py``, ``ops/norm.py``), f32 weight gradients of the
+  bf16 convs (``ops/conv.py``), the weighted cross-entropy and metrics
+  (``engine/losses.py``, ``engine/metrics.py``), Adam/RMSProp
+  (``engine/optim.py``), and checkpoints of the whole train state in the
+  JAX layout (``engine/checkpoint.py``, ``models/convert.py``).
 """
 
 __version__ = "0.1.0"

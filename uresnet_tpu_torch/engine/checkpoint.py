@@ -7,9 +7,10 @@ renamed, with a ``LATEST`` marker and retention. A JAX training
 checkpoint stores ``train_state/params/...``, ``train_state/model_state/...``
 (BN running stats), ``train_state/opt/...``, ``train_state/key`` and
 ``meta/{step,data_cursor}``; serving reads the first two and ignores the
-optimizer and PRNG leaves. Release artifacts (tools/make_release_ckpt.py)
-store bf16 kernels as uint16 bit patterns listed in ``__kernels_bf16__``;
-they are re-viewed as bfloat16 by torch, without ml_dtypes.
+optimizer and PRNG leaves, training reads them all (`load_checkpoint`).
+Release artifacts (tools/make_release_ckpt.py) store bf16 kernels as
+uint16 bit patterns listed in ``__kernels_bf16__``; they are re-viewed as
+bfloat16 by torch, without ml_dtypes.
 """
 
 from __future__ import annotations
@@ -85,22 +86,57 @@ def checkpoint_step(path: str) -> int:
     return int(m.group(1))
 
 
+def _read(path: str) -> Dict[str, Any]:
+    """Every leaf of a checkpoint npz by its '/' path: numpy arrays, and
+    bfloat16 CPU tensors for the keys of the bf16 release manifest."""
+    with np.load(path) as z:
+        stored = {k: z[k] for k in z.files}
+    bf16_keys = {str(k) for k in stored.pop("__kernels_bf16__", ())}
+    return {k: (torch.from_numpy(np.array(v)).view(torch.bfloat16)
+                if k in bf16_keys else v) for k, v in stored.items()}
+
+
+def _as_tensor(v) -> torch.Tensor:
+    return v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
+
+
+def load_checkpoint(path: str, template: Dict[str, Any], *,
+                    partial: bool = False) -> Dict[str, Any]:
+    """Restore a nested dict with the structure, shapes and dtypes of
+    ``template``, as the JAX package's ``load_checkpoint`` does: leaves are
+    found by their '/' path and cast to the template leaf's dtype; a missing
+    leaf raises — or, with ``partial=True`` (params-only release files),
+    keeps the template's value. Tensor leaves come back as CPU tensors,
+    numpy leaves as numpy arrays."""
+    stored = _read(path)
+    out = {}
+    for dotted, leaf in flatten_tree(template).items():
+        key = dotted.replace(".", "/")
+        if key not in stored:
+            if not partial:
+                raise KeyError(f"checkpoint missing leaf {key!r}")
+            out[dotted] = leaf.cpu() if torch.is_tensor(leaf) else np.asarray(leaf)
+            continue
+        got = stored[key]
+        if tuple(got.shape) != tuple(leaf.shape):
+            raise ValueError(f"leaf {key!r}: checkpoint shape "
+                             f"{tuple(got.shape)} != template {tuple(leaf.shape)}")
+        out[dotted] = (_as_tensor(got).to(leaf.dtype) if torch.is_tensor(leaf)
+                       else np.asarray(got).astype(np.asarray(leaf).dtype))
+    return unflatten_tree(out)
+
+
 def load_serving_state(path: str) -> Tuple[Dict[str, Any], Dict[str, Any], int]:
     """Read the params and BN-state leaves of a JAX checkpoint npz as
     (params, state) trees of CPU tensors (for models/convert.py
     ``load_jax_params``), and its ``meta/step`` (0 when absent)."""
-    with np.load(path) as z:
-        stored = {k: z[k] for k in z.files}
-    bf16_keys = {str(k) for k in stored.pop("__kernels_bf16__", ())}
+    stored = _read(path)
     step = int(stored.get("meta/step", 0))
     params, state = {}, {}
-    for key, arr in stored.items():
+    for key, v in stored.items():
         for prefix, dst in ((PARAMS_PREFIX, params), (STATE_PREFIX, state)):
             if key.startswith(prefix):
-                t = torch.from_numpy(np.array(arr))
-                if key in bf16_keys:
-                    t = t.view(torch.bfloat16)
-                dst[key[len(prefix):].replace("/", ".")] = t
+                dst[key[len(prefix):].replace("/", ".")] = _as_tensor(v)
     if not params:
         raise KeyError(f"{path!r} holds no {PARAMS_PREFIX}* leaves")
     return unflatten_tree(params), unflatten_tree(state), step

@@ -1,14 +1,75 @@
-"""Dataset segmentation metrics from confusion counts (host side, numpy).
+"""Segmentation metrics (port of uresnet_tpu/engine/metrics.py).
 
-Copied from uresnet_tpu/engine/metrics.py (``reduce_counts``,
-``metrics_from_counts``), whose module imports jax.
+``segmentation_metrics`` (per-batch means, read by the trainer's summaries)
+and ``segmentation_counts`` (confusion sums for dataset metrics) run on
+tensors on the device. ``reduce_counts`` and ``metrics_from_counts`` are
+the host side, numpy, copied because the JAX module imports jax.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
+
+
+def segmentation_metrics(logits: torch.Tensor, labels: torch.Tensor,
+                         data: torch.Tensor, *,
+                         num_class: int) -> Dict[str, torch.Tensor]:
+    """All-pixel accuracy, nonzero-pixel accuracy (pixels with charge),
+    per-class IoU and mIoU of one batch, as 0-d f32 tensors (empty union
+    -> IoU 1.0). logits (B, *S, C), labels (B, *S), data (B, *S, C_in)."""
+    pred = torch.argmax(logits, dim=-1)
+    labels = labels.to(pred.dtype)
+    correct = (pred == labels).float()
+    nonzero = (data.abs().sum(-1) > 0).float()
+    out = {
+        "acc_all": correct.mean(),
+        "acc_nonzero": (correct * nonzero).sum()
+        / torch.clamp(nonzero.sum(), min=1.0),
+    }
+    ious = []
+    for c in range(num_class):
+        p, t = pred == c, labels == c
+        inter = (p & t).float().sum()
+        union = (p | t).float().sum()
+        ious.append(torch.where(union > 0, inter / torch.clamp(union, min=1.0),
+                                torch.ones_like(union)))
+    iou = torch.stack(ious)
+    out["miou"] = iou.mean()
+    for c in range(num_class):
+        out[f"iou_class{c}"] = iou[c]
+    return out
+
+
+def segmentation_counts(logits: torch.Tensor, labels: torch.Tensor,
+                        data: torch.Tensor, *, num_class: int,
+                        row_valid: Optional[torch.Tensor] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """Sum form of `segmentation_metrics` for dataset evaluation: per-row
+    (pred, true) confusion counts (B, C, C), the pixel count, and per-row
+    nonzero-pixel counts; ``row_valid`` (B,) masks padded rows. Per-row
+    f32 sums stay exact integers; `reduce_counts` adds rows in float64."""
+    pred = torch.argmax(logits, dim=-1)
+    labels = labels.to(pred.dtype)
+    B = pred.shape[0]
+    spatial = tuple(range(1, pred.dim()))
+    valid = (torch.ones(B, device=pred.device) if row_valid is None
+             else row_valid.float())
+    vpix = valid.reshape((B,) + (1,) * len(spatial))
+    conf = torch.zeros(B, num_class * num_class, device=pred.device)
+    idx = (pred * num_class + labels).reshape(B, -1)
+    conf.scatter_add_(1, idx, vpix.expand_as(pred).reshape(B, -1).contiguous())
+    nonzero = (data.abs().sum(-1) > 0).float() * vpix
+    correct = (pred == labels).float()
+    pix_per_row = int(np.prod(pred.shape[1:]))
+    return {
+        "conf": conf.reshape(B, num_class, num_class),
+        "n_pixels": valid.sum() * float(pix_per_row),
+        "correct_nonzero": (correct * nonzero).sum(spatial),
+        "n_nonzero": nonzero.sum(spatial),
+    }
 
 
 def reduce_counts(counts: Dict[str, Any]) -> Dict[str, np.ndarray]:

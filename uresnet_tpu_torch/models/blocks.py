@@ -8,7 +8,11 @@
 Parameter and buffer names follow the JAX param/state trees
 (``cb1.conv.w``, ``cb1.bn.scale``, buffer ``cb1.bn.mean``), so a module's
 state dict and a JAX checkpoint name the same leaves (models/convert.py).
-Eval forward only.
+
+Every unit returns ``(y, new_state)``, the unit's BN-state subtree as the
+JAX functions return it. In train mode the new stats are new tensors; no
+buffer is written during the forward (the trainer copies them in after
+the step). In eval mode ``new_state`` holds the buffers themselves.
 """
 
 from __future__ import annotations
@@ -20,16 +24,19 @@ import torch
 from torch import nn
 
 from uresnet_tpu_torch.ops.conv import conv, conv_init, conv_transpose
-from uresnet_tpu_torch.ops.norm import batch_norm, bn_init
+from uresnet_tpu_torch.ops.norm import batch_norm, batch_norm_train, bn_init
 
 
 @dataclass(frozen=True)
 class BlockCtx:
-    """Static per-call context: dims, compute dtype, BN eps."""
+    """Static per-call context: dims, compute dtype, BN hyperparameters,
+    train or eval."""
 
     dims: int = 2
     compute_dtype: torch.dtype = torch.bfloat16
     bn_eps: float = 1e-3
+    bn_momentum: float = 0.99
+    train: bool = False
 
     def conv(self, x, p, stride=1):
         return conv(x, p, stride=stride, dims=self.dims,
@@ -70,8 +77,11 @@ class BatchNorm(nn.Module):
             self.register_buffer(k, v)
 
     def forward(self, x, ctx: BlockCtx):
-        return batch_norm(x, dict(self.named_parameters()),
-                          dict(self.named_buffers()), eps=ctx.bn_eps)
+        params, state = dict(self.named_parameters()), dict(self.named_buffers())
+        if ctx.train:
+            return batch_norm_train(x, params, state, momentum=ctx.bn_momentum,
+                                    eps=ctx.bn_eps)
+        return batch_norm(x, params, state, eps=ctx.bn_eps), state
 
 
 class ConvBN(nn.Module):
@@ -91,8 +101,8 @@ class ConvBN(nn.Module):
             y = ctx.conv_t(x, self.conv.params(), stride=stride)
         else:
             y = ctx.conv(x, self.conv.params(), stride=stride)
-        y = self.bn(y, ctx)
-        return torch.relu(y) if relu else y
+        y, bn_state = self.bn(y, ctx)
+        return (torch.relu(y) if relu else y), {"bn": bn_state}
 
 
 class ResBlock(nn.Module):
@@ -108,7 +118,7 @@ class ResBlock(nn.Module):
                      if in_ch != out_ch else None)
 
     def forward(self, x, ctx: BlockCtx):
-        y = self.cb1(x, ctx)
-        y = self.cb2(y, ctx, relu=False)
+        y, s1 = self.cb1(x, ctx)
+        y, s2 = self.cb2(y, ctx, relu=False)
         shortcut = x if self.proj is None else ctx.conv(x, self.proj.params())
-        return torch.relu(y + shortcut.to(y.dtype))
+        return torch.relu(y + shortcut.to(y.dtype)), {"cb1": s1, "cb2": s2}

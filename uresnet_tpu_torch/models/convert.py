@@ -4,7 +4,9 @@ The JAX package keeps params and BN running stats as nested dicts keyed
 by unit name (``params['enc0_b0']['cb1']['conv']['w']``,
 ``state['enc0_b0']['cb1']['bn']['mean']``). The module names its
 parameters and buffers the same way with dots, so the mapping is the key
-path: parameters <-> params tree, buffers <-> state tree.
+path: parameters <-> params tree, buffers <-> state tree. A whole train
+state adds the JAX ``AdamState`` (``opt.step``, ``opt.mu``, ``opt.nu`` —
+moments keyed like the params tree) and the uint32[2] ``key``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from uresnet_tpu_torch.engine.optim import AdamState
 
 Tree = Dict[str, Any]
 
@@ -74,3 +78,42 @@ def load_jax_params(model: nn.Module, params: Tree, state: Tree) -> None:
                 raise ValueError(f"{kind} {k!r}: shape {tuple(v.shape)} != "
                                  f"model {tuple(t.shape)}")
             t.copy_(v)
+
+
+def _fields(obj) -> Dict[str, Any]:
+    """A NamedTuple's (JAX TrainState / AdamState) or a dict's fields."""
+    return obj._asdict() if hasattr(obj, "_asdict") else dict(obj)
+
+
+def jax_train_state(model: nn.Module, opt: AdamState,
+                    key: np.ndarray) -> Dict[str, Any]:
+    """The fields of a JAX ``TrainState`` as numpy trees: params, BN state,
+    ``opt`` {step int32, mu, nu} and ``key`` uint32[2] — what its
+    checkpoint stores under ``train_state/``."""
+    params, state = jax_params(model)
+    moments = {name: unflatten_tree({k: v.detach().cpu().numpy()
+                                     for k, v in getattr(opt, name).items()})
+               for name in ("mu", "nu")}
+    return {"params": params, "model_state": state,
+            "opt": {"step": np.int32(opt.step), **moments},
+            "key": np.asarray(key, np.uint32)}
+
+
+def load_jax_train_state(model: nn.Module, ts: Any) -> Tuple[AdamState, np.ndarray]:
+    """Load a JAX ``TrainState`` (or its fields as a dict, numpy or tensor
+    leaves) into ``model``; returns its Adam state, with the moments as
+    f32 tensors on the model's device keyed by parameter name, and its key."""
+    f = _fields(ts)
+    load_jax_params(model, f["params"], f["model_state"])
+    opt = _fields(f["opt"])
+    names = dict(model.named_parameters())
+    moments = {}
+    for kind in ("mu", "nu"):
+        flat = flatten_tree(opt[kind])
+        if flat.keys() != names.keys():
+            raise KeyError(f"opt.{kind} does not match the model's params")
+        moments[kind] = {k: (v if torch.is_tensor(v) else torch.from_numpy(
+            np.array(v))).to(device=names[k].device, dtype=names[k].dtype)
+            for k, v in flat.items()}
+    return (AdamState(step=int(np.asarray(opt["step"])), **moments),
+            np.asarray(f["key"], np.uint32))

@@ -1,9 +1,9 @@
 """2D convolution primitives, channels-last (B, H, W, C) at the interface.
 
-Port of uresnet_tpu/ops/conv.py (forward only). Kernels keep the JAX
-layout (kH, kW, C_in, C_out) so one checkpoint loads in either package.
-Inside, activations are viewed as NCHW with channels-last strides, the
-layout cuDNN runs natively, so the permutes at the boundary copy nothing.
+Port of uresnet_tpu/ops/conv.py. Kernels keep the JAX layout
+(kH, kW, C_in, C_out) so one checkpoint loads in either package. Inside,
+activations are viewed as NCHW with channels-last strides, the layout
+cuDNN runs natively, so the permutes at the boundary copy nothing.
 
 SAME padding follows XLA, not torch's symmetric ``padding=``:
 
@@ -14,12 +14,23 @@ SAME padding follows XLA, not torch's symmetric ``padding=``:
     ``conv_transpose2d`` with the spatially flipped kernel, cropped to the
     first 2H x 2W — not ``ConvTranspose2d(padding=1, output_padding=1)``.
 
+bf16 convs go through `conv_general`'s autograd function: forward and data
+gradient exactly as stock autograd (bf16 in, bf16 out), but the weight
+gradient is computed from the upcast bf16 ``x`` and ``g`` into an f32
+tensor that is never rounded to bf16. Stock autograd of
+``conv(x.bfloat16(), w.bfloat16())`` would emit dw in bf16 and only then
+upcast it. Every bf16 value is exact in TF32, so on the card the dw conv
+runs with TF32 allowed: exact products, f32 sums — the numerics of the
+TPU's DEFAULT pass.
+
 Float32 means true float32: callers turn TF32 off for cuDNN and matmul
-(engine/export.py build_serving_fn), as JAX runs f32 at HIGHEST.
+(engine/export.py build_serving_fn, engine/trainer.py), as JAX runs f32 at
+HIGHEST.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -69,11 +80,99 @@ def _same_pads(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
-def _operands(x, w, compute_dtype, precision):
+@contextlib.contextmanager
+def _tf32_convs():
+    """TF32 allowed in cuDNN for the enclosed convs only. Not
+    ``torch.backends.cudnn.flags(allow_tf32=True)``: that context manager
+    also sets every other flag to its own defaults, cuDNN disabled among
+    them."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class _ConvF32WGrad(torch.autograd.Function):
+    """``aten.convolution(x, w32.to(x.dtype))`` whose weight gradient is the
+    f32 convolution of the upcast ``x`` and ``g`` (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, w32, stride, padding, transposed):
+        ctx.conf = (None, [stride] * 2, list(padding), [1, 1], transposed,
+                    [0, 0], 1)
+        ctx.save_for_backward(x, w32)
+        return torch.ops.aten.convolution(x, w32.to(x.dtype), *ctx.conf)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w32 = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.ops.aten.convolution_backward(
+                g, x, w32.to(x.dtype), *ctx.conf, [True, False, False])[0]
+        if ctx.needs_input_grad[1]:
+            with _tf32_convs():
+                dw = torch.ops.aten.convolution_backward(
+                    g.float(), x.float(), w32, *ctx.conf,
+                    [False, True, False])[1]
+        return dx, dw, None, None, None
+
+
+class _RoundOperand(torch.autograd.Function):
+    """Round to ``dtype`` and back in the forward; pass the gradient
+    unrounded: operand precision, not a cast in the graph."""
+
+    @staticmethod
+    def forward(ctx, t, dtype):
+        return t.to(dtype).to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def conv_general(x: torch.Tensor, w: torch.Tensor, *, stride: int,
+                 compute_dtype: torch.dtype, kind: str = "conv",
+                 precision: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The one conv entry point: (B, H, W, C) x (k, k, C, Co) -> NHWC.
+
+    ``kind='conv'``: SAME conv at ``stride``; ``kind='convt'``: SAME
+    fractionally-strided conv (output ``stride`` x larger). 16-bit compute
+    dtypes get the f32 weight gradient of `_ConvF32WGrad`; f32 (or wider)
+    compute, an explicit ``precision`` (see `head_precision`) or no weight
+    gradient runs stock autograd."""
     if precision is not None:  # round operands, compute in compute_dtype
         x = x.to(precision)
-        w = w.to(precision)
-    return x.to(compute_dtype), w.to(compute_dtype)
+        w = _RoundOperand.apply(w, precision)
+    x = x.to(compute_dtype)
+    xn = x.permute(0, 3, 1, 2)
+    k = w.shape[0]
+    if kind == "conv":
+        (ph0, ph1), (pw0, pw1) = (_same_pads(xn.shape[2], k, stride),
+                                  _same_pads(xn.shape[3], k, stride))
+        if ph0 != ph1 or pw0 != pw1:  # asymmetric: pad, then cuDNN pads 0
+            xn = F.pad(xn, (pw0, pw1, ph0, ph1))
+            ph0 = pw0 = 0
+        wn = w.permute(3, 2, 0, 1)  # (Co, C, kH, kW)
+        padding, transposed = (ph0, pw0), False
+    elif kind == "convt":
+        wn = w.flip(0, 1).permute(2, 3, 0, 1)  # (C_in, C_out, kH, kW)
+        padding, transposed = (0, 0), True
+    else:
+        raise ValueError(f"unknown conv kind {kind!r}")
+    f32_wgrad = (compute_dtype.itemsize < 4 and precision is None
+                 and torch.is_grad_enabled() and w.requires_grad)
+    if not f32_wgrad:
+        y = torch.ops.aten.convolution(
+            xn, wn.to(compute_dtype), None, [stride] * 2, list(padding),
+            [1, 1], transposed, [0, 0], 1)
+    else:
+        y = _ConvF32WGrad.apply(xn, wn.float(), stride, padding, transposed)
+    if kind == "convt":
+        y = y[:, :, :x.shape[1] * stride, :x.shape[2] * stride]
+    return y.permute(0, 2, 3, 1)
 
 
 def conv(x: torch.Tensor, params: dict, *, stride: int = 1, dims: int = 2,
@@ -83,18 +182,8 @@ def conv(x: torch.Tensor, params: dict, *, stride: int = 1, dims: int = 2,
 
     ``precision``: see `head_precision`."""
     check_dims(dims)
-    x, w = _operands(x, params["w"], compute_dtype, precision)
-    k = w.shape[0]
-    xn = x.permute(0, 3, 1, 2)
-    (ph0, ph1), (pw0, pw1) = (_same_pads(xn.shape[2], k, stride),
-                              _same_pads(xn.shape[3], k, stride))
-    if ph0 == ph1 and pw0 == pw1:  # cuDNN pads itself: no padded copy
-        y = F.conv2d(xn, w.permute(3, 2, 0, 1), stride=stride,
-                     padding=(ph0, pw0))
-    else:
-        y = F.conv2d(F.pad(xn, (pw0, pw1, ph0, ph1)), w.permute(3, 2, 0, 1),
-                     stride=stride)
-    y = y.permute(0, 2, 3, 1)
+    y = conv_general(x, params["w"], stride=stride, compute_dtype=compute_dtype,
+                     precision=precision)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y
@@ -106,11 +195,8 @@ def conv_transpose(x: torch.Tensor, params: dict, *, stride: int = 2,
     """SAME fractionally-strided conv: (B, H, W, C) -> (B, sH, sW, Co),
     equal to ``lax.conv_transpose(..., padding='SAME')``."""
     check_dims(dims)
-    x, w = _operands(x, params["w"], compute_dtype, None)
-    H, W = x.shape[1], x.shape[2]
-    wt = w.flip(0, 1).permute(2, 3, 0, 1)  # (C_in, C_out, kH, kW)
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, stride=stride)
-    y = y[:, :, :H * stride, :W * stride].permute(0, 2, 3, 1)
+    y = conv_general(x, params["w"], stride=stride, compute_dtype=compute_dtype,
+                     kind="convt")
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y

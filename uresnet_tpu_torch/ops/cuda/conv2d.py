@@ -2,12 +2,15 @@
 plain version.
 
 Port of uresnet_tpu/ops/pallas/conv2d.py::fused_conv3x3_bn_relu_v2; the
-kernel is csrc/conv2d.cu. ``block_h`` is gone: it was TPU tiling.
+kernel is csrc/conv2d.cu. ``block_h`` is gone: it was TPU tiling. The v1
+Pallas kernel ``fused_conv3x3_bn_relu`` computes the same function with
+another TPU blocking; its name is bound here to the same kernel and plain
+version.
 
-``fused_conv3x3_bn_relu_v2`` launches the kernel for CUDA tensors — or
-raises; it never falls back — and runs the plain version for CPU tensors.
-``launches`` counts kernel launches (not plain-version calls), so a run
-can show that its path went through the kernel.
+Both wrappers launch the kernel for CUDA tensors — or raise; they never
+fall back — and run the plain version for CPU tensors. ``launches`` (v2)
+and ``launches_v1`` count kernel launches (not plain-version calls), so a
+run can show that its path went through the kernel.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 launches = 0
+launches_v1 = 0
 
 _ENTRY = {torch.float32: "uresnet_fused_conv3x3_f32",
           torch.bfloat16: "uresnet_fused_conv3x3_bf16"}
@@ -77,19 +81,12 @@ def _check(x, w, scale, bias, residual):
     return B, H, W, C, Co
 
 
-def fused_conv3x3_bn_relu_v2(x: torch.Tensor, w: torch.Tensor,
-                             scale: torch.Tensor, bias: torch.Tensor,
-                             residual: Optional[torch.Tensor] = None, *,
-                             relu: bool = True) -> torch.Tensor:
-    """y = relu?(conv3x3_SAME(x, w) * scale + bias [+ residual]), NHWC.
-
-    x (B, H, W, C) f32/bf16; w (3, 3, C, Co) in x's dtype; scale, bias
-    (Co,) f32; residual (B, H, W, Co) in x's dtype or None. f32
-    accumulation, one write in x's dtype."""
+def _fused(x, w, scale, bias, residual, relu):
+    """(output, whether the kernel was launched)."""
     B, H, W, C, Co = _check(x, w, scale, bias, residual)
     if x.device.type == "cpu":
         return fused_conv3x3_bn_relu_v2_reference(x, w, scale, bias, residual,
-                                                  relu=relu)
+                                                  relu=relu), False
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     tensors = (x, w, scale, bias) + ((residual,) if residual is not None else ())
@@ -101,7 +98,7 @@ def fused_conv3x3_bn_relu_v2(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"batch {B} exceeds the kernel's grid limit 65535")
     out = torch.empty((B, H, W, Co), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
-        return out
+        return out, False
     lib = _lib()
     fn = getattr(lib, _ENTRY[x.dtype])
     with torch.cuda.device(x.device):
@@ -112,6 +109,36 @@ def fused_conv3x3_bn_relu_v2(x: torch.Tensor, w: torch.Tensor,
     if err != 0:
         msg = lib.uresnet_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_conv3x3 launch failed: CUDA error {err} ({msg})")
+    return out, True
+
+
+def fused_conv3x3_bn_relu_v2(x: torch.Tensor, w: torch.Tensor,
+                             scale: torch.Tensor, bias: torch.Tensor,
+                             residual: Optional[torch.Tensor] = None, *,
+                             relu: bool = True) -> torch.Tensor:
+    """y = relu?(conv3x3_SAME(x, w) * scale + bias [+ residual]), NHWC.
+
+    x (B, H, W, C) f32/bf16; w (3, 3, C, Co) in x's dtype; scale, bias
+    (Co,) f32; residual (B, H, W, Co) in x's dtype or None. f32
+    accumulation, one write in x's dtype."""
+    out, launched = _fused(x, w, scale, bias, residual, relu)
     global launches
-    launches += 1
+    launches += launched
+    return out
+
+
+# v1 (uresnet_tpu/ops/pallas/conv2d.py:182): the same function, so the same
+# kernel and the same plain version.
+fused_conv3x3_bn_relu_reference = fused_conv3x3_bn_relu_v2_reference
+
+
+def fused_conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor,
+                          scale: torch.Tensor, bias: torch.Tensor,
+                          residual: Optional[torch.Tensor] = None, *,
+                          relu: bool = True) -> torch.Tensor:
+    """The v1 entry point: `fused_conv3x3_bn_relu_v2`'s kernel and operands,
+    counted in ``launches_v1``."""
+    out, launched = _fused(x, w, scale, bias, residual, relu)
+    global launches_v1
+    launches_v1 += launched
     return out

@@ -1,8 +1,9 @@
-"""Eval-mode BatchNorm with TF1 semantics (port of uresnet_tpu/ops/norm.py).
+"""BatchNorm with TF1 semantics (port of uresnet_tpu/ops/norm.py).
 
 No ``nn.BatchNorm*``: its running variance is unbiased, TF1's is biased.
-Only the eval form is ported so far; train-mode statistics come with the
-training slice (ROADMAP.md).
+The running stats are explicit state: the train form returns new stats
+instead of writing buffers, so a forward that is run twice (activation
+checkpointing reruns it in the backward) moves them once.
 """
 
 from __future__ import annotations
@@ -25,11 +26,34 @@ def bn_init(ch: int, param_dtype: torch.dtype = torch.float32,
     return params, state
 
 
+def _affine(x, params, mean, var, eps):
+    """y = x*g + b, g = scale/sqrt(var+eps), b = bias - mean*g: g, b in f32,
+    the one elementwise pass in the activation dtype."""
+    g = torch.rsqrt(var + eps) * params["scale"].float()
+    b = params["bias"].float() - mean * g
+    return x * g.to(x.dtype) + b.to(x.dtype)
+
+
 def batch_norm(x: torch.Tensor, params: dict, state: dict, *,
                eps: float = 1e-3) -> torch.Tensor:
-    """Normalize over all dims but the trailing channel dim with the running
-    stats, as ONE per-channel affine applied in the activation dtype:
-    y = x*g + b, g = scale/sqrt(var+eps), b = bias - mean*g (g, b in f32)."""
-    g = torch.rsqrt(state["var"].float() + eps) * params["scale"].float()
-    b = params["bias"].float() - state["mean"].float() * g
-    return x * g.to(x.dtype) + b.to(x.dtype)
+    """Eval form: normalize over all dims but the trailing channel dim with
+    the running stats."""
+    return _affine(x, params, state["mean"].float(), state["var"].float(), eps)
+
+
+def batch_norm_train(x: torch.Tensor, params: dict, state: dict, *,
+                     momentum: float = 0.99, eps: float = 1e-3
+                     ) -> Tuple[torch.Tensor, dict]:
+    """Train form: returns (y, new_state). Batch statistics in f32 over all
+    dims but the channel, biased ``var = E[x^2] - E[x]^2``; gradients flow
+    through them. The new running stats are new, detached tensors."""
+    x32 = x.float()
+    dims = tuple(range(x.dim() - 1))
+    mean = x32.mean(dims)
+    var = x32.square().mean(dims) - mean.square()
+    with torch.no_grad():
+        new_state = {
+            "mean": state["mean"] * momentum + mean * (1.0 - momentum),
+            "var": state["var"] * momentum + var * (1.0 - momentum),
+        }
+    return _affine(x, params, mean, var, eps), new_state
