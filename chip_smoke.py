@@ -10,16 +10,23 @@ level, 3 classes, bf16, 512^2, batch 32) with random seeded weights:
   1. device   — requires a CUDA device; prints the card's name and power
                 limit (nvidia-smi) and the torch / CUDA versions;
   2. build    — compiles uresnet_tpu_torch/csrc/*.cu with nvcc (sm_90a);
-  3. kernels  — the fused conv kernel vs its plain version at every shape the
-                flagship forward gives it (enumerated from the model), plus
-                an f32 case and a ragged case; then at batch 32, as the
-                forward calls it, checks the kernel again and times it, the
-                plain version and the cuDNN bf16 composition; the v1 entry
-                point (bound to the same kernel) at two of those shapes;
+  3. kernels  — the fused conv's tensor-core kernel vs its plain version at
+                every shape the flagship forward gives it (enumerated from
+                the model) x {residual+ReLU, ReLU, residual}, plus a ragged
+                spatial case; the CUDA-core kernel on an f32 case and a
+                ragged-channel case; the launch counters show which kernel
+                ran each. Then at batch 32, as the forward calls it, checks
+                the kernel again and times it beside its bound, the
+                CUDA-core kernel on the same bf16 operands, the plain
+                version and the cuDNN bf16 composition; the CUDA-core kernel likewise at the f32
+                forward's shapes; the v1 entry point at two shapes;
   4. serve    — 64 synthetic 512^2 events through ``python -m
                 uresnet_tpu_torch.cli.infer`` (2 batches of 32) from a
                 checkpoint in the JAX npz layout; checks the export and that
-                the kernel launched exactly 44 times per batch;
+                the tensor-core kernel launched exactly 44 times per batch;
+  4b. serve32 — the same events with ``model.compute_dtype=float32``: the
+                CUDA-core kernel launches 44 times per batch, and the scores
+                agree with the bf16 run's;
   5. forward  — the same events with ``kernel_backend=xla`` (cuDNN) for
                 agreement, and both whole forwards timed.
 
@@ -42,6 +49,11 @@ Then one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 non-zero and the last line is not printed. Scratch files go under
 build/uresnet_tpu_torch/smoke/ in the checkout.
+
+    python3 chip_smoke.py --kernels-only
+
+runs phases 1-3 alone (a short check of the kernels) and prints no result
+line.
 """
 
 from __future__ import annotations
@@ -94,6 +106,9 @@ FWD_MAX_SOFTMAX_DIFF, FWD_MIN_AGREE = 0.05, 0.98
 # the bf16 conv's f32 weight gradient vs the float64 product of the same
 # bf16 operands, relative to its max: bf16 rounding would be ~4e-3
 DW_REL = 1e-5
+KERNELS_ONLY = False  # phases 1-3 alone (--kernels-only)
+# an H100 SXM's published peaks (NVIDIA data sheet, dense), for the bounds
+HBM_BYTES_PER_S, BF16_PEAK, F32_PEAK = 3.35e12, 989e12, 67e12
 
 
 def card_line() -> str:
@@ -107,18 +122,23 @@ def card_line() -> str:
         return f"{torch.cuda.get_device_name(0)}, power limit not readable"
 
 
-def time_ms(fn, reps=5, warmup=2) -> float:
-    """Median device time of ``fn`` over ``reps`` calls (CUDA events)."""
+def time_ms(fn, reps=5, warmup=2, inner=1) -> float:
+    """Device time of one call of ``fn``: the median over ``reps`` of CUDA
+    events around ``inner`` calls back to back, divided by ``inner``. With
+    ``inner`` > 1 a call of a short kernel is timed as the forward runs it,
+    queued behind the previous one, and not with the host's launch
+    latency in it."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
 
 
@@ -157,11 +177,68 @@ def check_close(got, want, dtype):
     return err.max().item(), err.max().item() / max(scale, 1e-30)
 
 
-def kernel_phase(fused_mod, fold, serve, cfg, dev):
-    """Kernel vs plain at every shape of the flagship forward; timings."""
+def bound(B, H, W, C, Co, res, dtype):
+    """(least ms, what bounds it) for one fused conv on an H100: its bytes
+    (x, w, scale, bias, residual read once, y written once) over HBM's rate
+    against its FLOP over the peak rate of the units it runs on (bf16:
+    tensor cores; f32: CUDA cores, TF32 being off)."""
+    e = 2 if dtype == torch.bfloat16 else 4
+    px = B * H * W
+    nbytes = e * (px * C + 9 * C * Co + px * Co * (2 if res else 1)) + 8 * Co
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 18 * C * Co * px / (BF16_PEAK if e == 2 else F32_PEAK) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_by(parts):
+    """What bounds a sum of calls: 'bytes' when the calls bound by their
+    bytes carry at least half of the summed bound. ``parts`` holds
+    (calls, bound ms, what bounds it) per shape."""
+    by_bytes = sum(n * t for n, t, by in parts if by == "bytes")
+    return "bytes" if 2 * by_bytes >= sum(n * t for n, t, _ in parts) else "operations"
+
+
+def operand_maker(dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def operands(B, H, W, C, Co, dtype, res=True):
+        x = torch.randn(B, H, W, C, generator=g, device=dev).to(dtype)
+        w = (torch.randn(3, 3, C, Co, generator=g, device=dev)
+             * (2.0 / (9 * C)) ** 0.5).to(dtype)
+        scale = torch.rand(Co, generator=g, device=dev) + 0.5
+        bias = torch.randn(Co, generator=g, device=dev) * 0.1
+        r = (torch.randn(B, H, W, Co, generator=g, device=dev).to(dtype)
+             if res else None)
+        return x, w, scale, bias, r
+    return operands
+
+
+def cudnn_composition(x, w, bias, r):
+    """The 'xla' backend's composition (scale is 1 there): cuDNN conv with
+    bias, then the residual add and ReLU as separate passes."""
     from uresnet_tpu_torch.ops.conv import conv
 
-    calls = {}  # (C, Co, H, W, residual) -> calls per forward
+    y = conv(x, {"w": w, "b": bias}, compute_dtype=x.dtype)
+    return torch.relu(y + r) if r is not None else torch.relu(y)
+
+
+def cuda_core_bf16(fused_mod, x, w, scale, bias, r):
+    """The CUDA-core kernel on bf16 operands, called through the
+    library's C entry (the wrapper sends these shapes to the tensor-core
+    kernel): timed beside it, counted nowhere."""
+    out = torch.empty(x.shape[:3] + w.shape[3:], dtype=x.dtype, device=x.device)
+    err = fused_mod._lib().uresnet_fused_conv3x3_bf16(
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        r.data_ptr() if r is not None else None, out.data_ptr(),
+        *x.shape, w.shape[3], 1, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"CUDA-core kernel launch failed: CUDA error {err}")
+    return out
+
+
+def forward_calls(fold, serve, cfg, dev):
+    """{(C, Co, H, W, residual): calls} of one forward of ``serve``."""
+    calls = {}
     real = fold.fused_conv3x3_bn_relu_v2
 
     def record(x, w, scale, bias, residual=None, *, relu=True):
@@ -176,109 +253,173 @@ def kernel_phase(fused_mod, fold, serve, cfg, dev):
         serve(torch.rand(1, S, S, 1, device=dev))
     finally:
         fold.fused_conv3x3_bn_relu_v2 = real
+    return calls
+
+
+def kernel_phase(fused_mod, fold, serve, cfg, dev, card):
+    """Both kernels vs the plain version; which kernel each case ran; the
+    tensor-core kernel's times at the forward's shapes at batch 32. Returns
+    the tensor-core kernel's record and its per-call rows."""
+    calls = forward_calls(fold, serve, cfg, dev)
     shapes = sorted({k[:4] for k in calls}, key=lambda s: (-s[2], s[0]))
     print(f"[kernels] flagship forward: {sum(calls.values())} fused calls, "
           f"{len(shapes)} distinct (C, Co, H, W): {shapes}", flush=True)
+    operands = operand_maker(dev, SEED)
 
-    g = torch.Generator(device=dev).manual_seed(SEED)
+    def check_cases(cases, counter):
+        worst = 0.0
+        fused_mod.launches_tensor_core = fused_mod.launches_cuda_core = 0
+        for (C, Co, H, W), dtype, res, relu in cases:
+            x, w, scale, bias, r = operands(1, H, W, C, Co, dtype, res)
+            got = fused_mod.fused_conv3x3_bn_relu_v2(x, w, scale, bias, r,
+                                                     relu=relu)
+            want = fused_mod.fused_conv3x3_bn_relu_v2_reference(
+                x, w, scale, bias, r, relu=relu)
+            torch.cuda.synchronize()
+            abs_err, rel_err = check_close(got, want, dtype)
+            worst = max(worst, abs_err)
+            print(f"[kernels] {counter}: {C}->{Co} @{H}x{W} {str(dtype)[6:]} "
+                  f"residual={res} relu={relu}: max abs err {abs_err:.3e}, "
+                  f"rel {rel_err:.3e} ok", flush=True)
+        ran = {"tensor_core": fused_mod.launches_tensor_core,
+               "cuda_core": fused_mod.launches_cuda_core}
+        if ran[counter] != len(cases) or sum(ran.values()) != len(cases):
+            raise AssertionError(f"{len(cases)} cases meant for the {counter} "
+                                 f"kernel launched {ran}")
+        return worst
 
-    def operands(B, H, W, C, Co, dtype):
-        x = torch.randn(B, H, W, C, generator=g, device=dev).to(dtype)
-        w = (torch.randn(3, 3, C, Co, generator=g, device=dev)
-             * (2.0 / (9 * C)) ** 0.5).to(dtype)
-        scale = torch.rand(Co, generator=g, device=dev) + 0.5
-        bias = torch.randn(Co, generator=g, device=dev) * 0.1
-        res = torch.randn(B, H, W, Co, generator=g, device=dev).to(dtype)
-        return x, w, scale, bias, res
+    tc_worst = check_cases(
+        [(s, torch.bfloat16, res, relu) for s in shapes
+         for res, relu in ((True, True), (False, True), (True, False))]
+        + [((32, 48, 37, 53), torch.bfloat16, True, True)],   # ragged H, W
+        "tensor_core")
+    check_cases([((64, 64, 128, 128), torch.float32, True, True),   # f32
+                 ((24, 40, 37, 53), torch.bfloat16, True, True)],  # ragged C
+                "cuda_core")
 
-    worst = 0.0
-    cases = [(s, torch.bfloat16, res, relu) for s in shapes
-             for res, relu in ((True, True), (False, True), (True, False))]
-    cases += [((64, 64, 128, 128), torch.float32, True, True),   # f32
-              ((24, 40, 37, 53), torch.bfloat16, True, True)]    # ragged
-    for (C, Co, H, W), dtype, res, relu in cases:
-        x, w, scale, bias, r = operands(1, H, W, C, Co, dtype)
-        r = r if res else None
-        got = fused_mod.fused_conv3x3_bn_relu_v2(x, w, scale, bias, r, relu=relu)
-        want = fused_mod.fused_conv3x3_bn_relu_v2_reference(x, w, scale, bias,
-                                                            r, relu=relu)
-        torch.cuda.synchronize()
-        abs_err, rel_err = check_close(got, want, dtype)
-        worst = max(worst, abs_err)
-        print(f"[kernels] {C}->{Co} @{H}x{W} {str(dtype)[6:]} residual={res} "
-              f"relu={relu}: max abs err {abs_err:.3e}, rel {rel_err:.3e} ok",
-              flush=True)
-
-    # times at the main path's batch, per (shape, residual) as the forward
-    # calls it; summed over one forward's calls
+    # at the main path's batch, per (shape, residual) as the forward calls
+    # it; summed over one forward's calls
     B = cfg.data.batch_size
-    ms = plain_ms = cudnn_ms = 0.0
+    rows = []
     for (C, Co, H, W, res), n in sorted(calls.items(), key=lambda kv: -kv[0][2]):
-        x, w, scale, bias, r = operands(B, H, W, C, Co, torch.bfloat16)
-        r = r if res else None
-        p = {"w": w, "b": bias}
+        x, w, scale, bias, r = operands(B, H, W, C, Co, torch.bfloat16, res)
         t_k = time_ms(lambda: fused_mod.fused_conv3x3_bn_relu_v2(
-            x, w, scale, bias, r))
+            x, w, scale, bias, r), inner=10)
+        t_1 = time_ms(lambda: cuda_core_bf16(fused_mod, x, w, scale, bias, r),
+                      inner=10)
         t_p = time_ms(lambda: fused_mod.fused_conv3x3_bn_relu_v2_reference(
-            x, w, scale, bias, r))
-
-        def cudnn():  # the 'xla' backend's composition (scale is 1 there)
-            y = conv(x, p, compute_dtype=torch.bfloat16)
-            return torch.relu(y + r) if r is not None else torch.relu(y)
-
-        t_c = time_ms(cudnn)
+            x, w, scale, bias, r), inner=10)
+        t_c = time_ms(lambda: cudnn_composition(x, w, bias, r), inner=10)
         abs_err, _ = check_close(  # also at the main path's exact shape
             fused_mod.fused_conv3x3_bn_relu_v2(x, w, scale, bias, r),
             fused_mod.fused_conv3x3_bn_relu_v2_reference(x, w, scale, bias, r),
             torch.bfloat16)
+        tc_worst = max(tc_worst, abs_err)
+        t_b, by = bound(B, H, W, C, Co, res, torch.bfloat16)
+        nbytes = 2 * B * H * W * (C + Co * (2 if res else 1))
+        flop = 18 * C * Co * H * W * B
+        print(f"[kernels] B={B} {C}->{Co} @{H}x{W} residual={res} x{n}: max "
+              f"abs err {abs_err:.3e} ok; tensor-core kernel {t_k:.4f} ms "
+              f"({flop / t_k / 1e9:.1f} TFLOP/s, {nbytes / t_k / 1e6:.0f} "
+              f"GB/s), bound {t_b:.4f} ms ({by}; {t_b / t_k:.3f} of it), "
+              f"cuda-core kernel {t_1:.4f} ms, plain(f32) {t_p:.4f} ms, cudnn bf16 "
+              f"{t_c:.4f} ms | {card}", flush=True)
+        rows.append((n, t_k, t_1, t_p, t_c, t_b, by))
+    total = [sum(row[0] * row[i] for row in rows) for i in range(1, 6)]
+    by_bytes = sum(row[0] * row[5] for row in rows if row[6] == "bytes")
+    print(f"[kernels] per forward ({sum(calls.values())} calls): tensor-core "
+          f"kernel {total[0]:.3f} ms, bound {total[4]:.3f} ms ({by_bytes:.3f} "
+          f"of it bytes-bound), cuda-core kernel {total[1]:.3f} ms, plain(f32) "
+          f"{total[2]:.3f} ms, cudnn bf16 composition {total[3]:.3f} ms | "
+          f"{card}", flush=True)
+    return {"max_abs_err": tc_worst, "ms": total[0], "plain_ms": total[2],
+            "bound_ms": total[4],
+            "bound_by": bound_by([(row[0], row[5], row[6]) for row in rows]),
+            "library_ms": total[3]}
+
+
+def cuda_core_phase(fused_mod, fold, cfg, model, dev, card):
+    """The CUDA-core kernel at the shapes of the f32 forward (the flagship
+    with compute_dtype float32), batch 32: checked against the plain
+    version and timed beside its bound and the cuDNN f32 composition (TF32
+    off), summed over one forward's calls."""
+    from uresnet_tpu_torch.engine.export import build_serving_fn
+
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="float32"))
+    calls = forward_calls(fold, build_serving_fn(cfg32, model), cfg32, dev)
+    operands = operand_maker(dev, SEED + 4)
+    B = cfg.data.batch_size
+    worst, total, parts = 0.0, [0.0] * 4, []
+    for (C, Co, H, W, res), n in sorted(calls.items(), key=lambda kv: -kv[0][2]):
+        x, w, scale, bias, r = operands(B, H, W, C, Co, torch.float32, res)
+        t_k = time_ms(lambda: fused_mod.fused_conv3x3_bn_relu_v2(
+            x, w, scale, bias, r), reps=3, warmup=1, inner=5)
+        t_p = time_ms(lambda: fused_mod.fused_conv3x3_bn_relu_v2_reference(
+            x, w, scale, bias, r), reps=3, warmup=1, inner=5)
+        t_c = time_ms(lambda: cudnn_composition(x, w, bias, r), reps=3,
+                      warmup=1, inner=5)
+        abs_err, _ = check_close(
+            fused_mod.fused_conv3x3_bn_relu_v2(x, w, scale, bias, r),
+            fused_mod.fused_conv3x3_bn_relu_v2_reference(x, w, scale, bias, r),
+            torch.float32)
         worst = max(worst, abs_err)
-        flop = 2 * 9 * C * Co * H * W * B
-        print(f"[kernels] B={B} {C}->{Co} @{H}x{W} residual={res} x{n}: "
-              f"max abs err {abs_err:.3e} ok; "
-              f"kernel {t_k:.4f} ms ({flop / t_k / 1e9:.2f} TFLOP/s), "
-              f"plain(f32) {t_p:.4f} ms, cudnn bf16 {t_c:.4f} ms", flush=True)
-        ms += n * t_k
-        plain_ms += n * t_p
-        cudnn_ms += n * t_c
-    return worst, ms, plain_ms, cudnn_ms
+        t_b, by = bound(B, H, W, C, Co, res, torch.float32)
+        parts.append((n, t_b, by))
+        print(f"[kernels] f32 B={B} {C}->{Co} @{H}x{W} residual={res} x{n}: "
+              f"max abs err {abs_err:.3e} ok; cuda-core kernel {t_k:.4f} ms, "
+              f"bound {t_b:.4f} ms ({by}), plain(f32) {t_p:.4f} ms, cudnn f32 "
+              f"{t_c:.4f} ms", flush=True)
+        for i, t in enumerate((t_k, t_p, t_c, t_b)):
+            total[i] += n * t
+    print(f"[kernels] f32 per forward ({sum(calls.values())} calls): "
+          f"cuda-core kernel {total[0]:.3f} ms, bound {total[3]:.3f} ms, "
+          f"plain(f32) {total[1]:.3f} ms, cudnn f32 composition "
+          f"{total[2]:.3f} ms | {card}", flush=True)
+    return {"max_abs_err": worst, "ms": total[0], "plain_ms": total[1],
+            "bound_ms": total[3], "bound_by": bound_by(parts),
+            "library_ms": total[2]}
 
 
 def v1_phase(fused_mod, cfg, dev):
-    """The v1 entry point (the same kernel) at two flagship shapes, batch
+    """The v1 entry point (the same kernels) at two flagship shapes, batch
     32: one launch each with the count from 0 — its run — then held
-    against the plain version and timed. Returns (launches, worst abs err,
-    kernel ms, plain ms) summed over the two shapes."""
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    against the plain version and timed. Returns its record, summed over
+    the two shapes."""
+    operands = operand_maker(dev, SEED + 1)
     B, shapes = cfg.data.batch_size, ((16, 16, 512, 512, True),
                                       (128, 64, 128, 128, False))
-    ops = []
-    for C, Co, H, W, res in shapes:
-        x = torch.randn(B, H, W, C, generator=g, device=dev).bfloat16()
-        w = (torch.randn(3, 3, C, Co, generator=g, device=dev)
-             * (2.0 / (9 * C)) ** 0.5).bfloat16()
-        scale = torch.rand(Co, generator=g, device=dev) + 0.5
-        bias = torch.randn(Co, generator=g, device=dev) * 0.1
-        r = (torch.randn(B, H, W, Co, generator=g, device=dev).bfloat16()
-             if res else None)
-        ops.append((x, w, scale, bias, r))
+    ops = [operands(B, H, W, C, Co, torch.bfloat16, res)
+           for C, Co, H, W, res in shapes]
     fused_mod.launches_v1 = 0
     outs = [fused_mod.fused_conv3x3_bn_relu(*o) for o in ops]
     torch.cuda.synchronize()
     launches = fused_mod.launches_v1
     if launches != len(shapes):
         raise AssertionError(f"v1 launches {launches} != {len(shapes)}")
-    worst = ms = plain_ms = 0.0
+    rec = {"launches": launches, "max_abs_err": 0.0, "ms": 0.0,
+           "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    parts = []
     for (C, Co, H, W, res), o, got in zip(shapes, ops, outs):
         abs_err, _ = check_close(got, fused_mod.fused_conv3x3_bn_relu_reference(*o),
                                  torch.bfloat16)
-        worst = max(worst, abs_err)
-        t_k = time_ms(lambda: fused_mod.fused_conv3x3_bn_relu(*o))
-        t_p = time_ms(lambda: fused_mod.fused_conv3x3_bn_relu_reference(*o))
-        ms, plain_ms = ms + t_k, plain_ms + t_p
+        t_k = time_ms(lambda: fused_mod.fused_conv3x3_bn_relu(*o), inner=10)
+        t_p = time_ms(lambda: fused_mod.fused_conv3x3_bn_relu_reference(*o),
+                      inner=10)
+        t_c = time_ms(lambda: cudnn_composition(o[0], o[1], o[3], o[4]),
+                      inner=10)
+        t_b, by = bound(B, H, W, C, Co, res, torch.bfloat16)
+        parts.append((1, t_b, by))
+        rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+        for k, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_c),
+                     ("bound_ms", t_b)):
+            rec[k] += t
         print(f"[kernels] v1 B={B} {C}->{Co} @{H}x{W} residual={res}: max abs "
-              f"err {abs_err:.3e} ok; kernel {t_k:.4f} ms, plain(f32) "
-              f"{t_p:.4f} ms", flush=True)
-    return launches, worst, ms, plain_ms
+              f"err {abs_err:.3e} ok; kernel {t_k:.4f} ms, bound {t_b:.4f} ms "
+              f"({by}), plain(f32) {t_p:.4f} ms, cudnn bf16 {t_c:.4f} ms",
+              flush=True)
+    rec["bound_by"] = bound_by(parts)
+    return rec
 
 
 def profile_forwards(fns, x, path, card, reps=3, warmup=3, unit="forward",
@@ -369,6 +510,44 @@ def check_export(path, stats, n_events, num_class):
     return z
 
 
+def serve_counted(fused_mod, infer, argv, out, n_events, num_class, kernel,
+                  per_batch=44, batch_events=32):
+    """cli.infer with every launch counter set to 0 just before and read just
+    after: the entry point ``launches`` and the kernel named by ``kernel``
+    ('tensor_core' or 'cuda_core') must count ``per_batch`` per batch, the
+    other kernel none. Returns (npz, the counts, wall s)."""
+    fused_mod.launches = fused_mod.launches_v1 = 0
+    fused_mod.launches_tensor_core = fused_mod.launches_cuda_core = 0
+    t0 = time.time()
+    stats = run_cli(infer, argv + ["--output", out])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {"v2": fused_mod.launches,
+              "tensor_core": fused_mod.launches_tensor_core,
+              "cuda_core": fused_mod.launches_cuda_core}
+    n = per_batch * -(-n_events // batch_events)
+    want = {"v2": n, "tensor_core": 0, "cuda_core": 0}
+    want[kernel] = n
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts} != {want}")
+    return check_export(out, stats, n_events, num_class), counts, wall
+
+
+def agreement(z, zx, what):
+    """Two exports of the same events: same pixels; softmax and argmax
+    within the forward tolerances."""
+    for k in ("event_id", "plane_id", "coords", "label"):
+        if not np.array_equal(z[k], zx[k]):
+            raise AssertionError(f"{what}: export column {k} differs")
+    d = np.abs(z["scores"] - zx["scores"]).max()
+    agree = float((z["pred"] == zx["pred"]).mean())
+    if not (d <= FWD_MAX_SOFTMAX_DIFF and agree >= FWD_MIN_AGREE):
+        raise AssertionError(f"{what}: max softmax diff {d} (tol "
+                             f"{FWD_MAX_SOFTMAX_DIFF}), argmax agreement "
+                             f"{agree} (min {FWD_MIN_AGREE})")
+    return d, agree
+
+
 def train_phase(cfg_path, cfg, fused_mod, card, dev):
     """Phase 7: cli.train at the flagship width, its checkpoint, serving
     from it, the step's time, memory and profile."""
@@ -422,16 +601,13 @@ def train_phase(cfg_path, cfg, fused_mod, card, dev):
     events = generate_file(os.path.join(WORK, "serve32.usef"), n_serve,
                            seed=SEED + 2, shape=(S, S), planes=planes)
     out = os.path.join(WORK, "scores_trained.npz")
-    fused_mod.launches = 0
-    stats = run_cli(infer, [cfg_path, "--checkpoint", ckpt, "--input", events,
-                            "--output", out, "--device", DEVICE])
-    torch.cuda.synchronize()
-    launches = fused_mod.launches
-    check_export(out, stats, n_serve, cfg.model.num_class)
-    if launches != 44:
-        raise AssertionError(f"kernel launches {launches} != 44 for one batch")
+    _, counts, _ = serve_counted(
+        fused_mod, infer, [cfg_path, "--checkpoint", ckpt, "--input", events,
+                           "--device", DEVICE], out, n_serve,
+        cfg.model.num_class, "tensor_core")
     print(f"[train]   served {n_serve} events from the trained checkpoint: "
-          f"kernel launches {launches} (= 44 x 1), export checked", flush=True)
+          f"kernel launches {counts} (= 44 x 1 on the tensor-core kernel), "
+          f"export checked", flush=True)
 
     # the step's time, memory and profile at batch 32
     loader = tr.make_loader(train=True)
@@ -597,50 +773,50 @@ def main():
     model.to(dev)
     serve = build_serving_fn(cfg, model)
 
-    # 3. kernel vs plain at the slice's shapes; the v1 entry point
-    worst, k_ms, p_ms, c_ms = kernel_phase(fused_mod, fold, serve, cfg, dev)
-    v1_launches, v1_worst, v1_ms, v1_plain_ms = v1_phase(fused_mod, cfg, dev)
+    # 3. both kernels vs plain; times at the main paths' shapes; v1
+    tc_rec = kernel_phase(fused_mod, fold, serve, cfg, dev, card)
+    cc_rec = cuda_core_phase(fused_mod, fold, cfg, model, dev, card)
+    v1_rec = v1_phase(fused_mod, cfg, dev)
+    if KERNELS_ONLY:
+        return
 
-    # 4. the main path through the normal entry point
+    # 4. the main path through the normal entry point (bf16: tensor cores)
     ckpt = save_checkpoint(os.path.join(WORK, "ckpt"), 0,
                            train_state_tree(*jax_params(model), 0))
     S = cfg.data.image_size
     events = generate_file(os.path.join(WORK, "events.usef"), N_EVENTS,
                            seed=SEED, shape=(S, S), planes=tuple(cfg.data.planes))
-    out_auto = os.path.join(WORK, "scores_auto.npz")
     argv = [cfg_path, "--checkpoint", ckpt, "--input", events, "--device", DEVICE]
-    fused_mod.launches = 0
-    t0 = time.time()
-    stats = run_cli(infer, argv + ["--output", out_auto])
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = fused_mod.launches
-    n_batches = -(-N_EVENTS // (cfg.data.batch_size // len(cfg.data.planes)))
-    z = check_export(out_auto, stats, N_EVENTS, cfg.model.num_class)
-    scores = z["scores"]
-    if launches != 44 * n_batches:
-        raise AssertionError(f"kernel launches {launches} != 44 x {n_batches}")
-    print(f"[serve]   {N_EVENTS} events in {n_batches} batches, "
-          f"{len(scores)} charge pixels exported, kernel launches {launches} "
-          f"(= 44 x {n_batches}), {wall:.2f} s wall incl. host densify/export",
-          flush=True)
+    batch_events = cfg.data.batch_size // len(cfg.data.planes)
+    z, counts, wall = serve_counted(
+        fused_mod, infer, argv, os.path.join(WORK, "scores_auto.npz"),
+        N_EVENTS, cfg.model.num_class, "tensor_core", batch_events=batch_events)
+    tc_rec["launches"] = counts["tensor_core"]
+    print(f"[serve]   {N_EVENTS} events, {len(z['scores'])} charge pixels "
+          f"exported, kernel launches {counts} (= 44 per batch, tensor-core "
+          f"kernel), {wall:.2f} s wall incl. host densify/export", flush=True)
+
+    # 4b. the f32 serving path (CUDA-core kernel), held to the bf16 one
+    z32, counts, wall = serve_counted(
+        fused_mod, infer, argv + ["model.compute_dtype=float32"],
+        os.path.join(WORK, "scores_f32.npz"), N_EVENTS, cfg.model.num_class,
+        "cuda_core", batch_events=batch_events)
+    cc_rec["launches"] = counts["cuda_core"]
+    d, agree = agreement(z32, z, "f32 vs bf16 kernel path")
+    print(f"[serve32] {N_EVENTS} events at compute_dtype float32: kernel "
+          f"launches {counts} (= 44 per batch, CUDA-core kernel), {wall:.2f} s "
+          f"wall; vs the bf16 kernel path: max softmax diff {d:.3e}, argmax "
+          f"agreement {agree:.5f}", flush=True)
 
     # 5. whole forward: kernel vs plain (cuDNN) path
-    out_xla = os.path.join(WORK, "scores_xla.npz")
-    run_cli(infer, argv + ["--output", out_xla, "model.kernel_backend=xla"])
-    zx = np.load(out_xla)
-    for k in ("event_id", "plane_id", "coords", "label"):
-        if not np.array_equal(z[k], zx[k]):
-            raise AssertionError(f"export column {k} differs between backends")
-    d = np.abs(scores - zx["scores"]).max()
-    agree = float((z["pred"] == zx["pred"]).mean())
-    if not (d <= FWD_MAX_SOFTMAX_DIFF and agree >= FWD_MIN_AGREE):
-        raise AssertionError(f"kernel vs cudnn forward: max softmax diff {d} "
-                             f"(tol {FWD_MAX_SOFTMAX_DIFF}), argmax agreement "
-                             f"{agree} (min {FWD_MIN_AGREE})")
-    print(f"[forward] kernel vs cudnn path on {len(scores)} charge pixels: max "
-          f"softmax diff {d:.3e} (tol {FWD_MAX_SOFTMAX_DIFF}), argmax agreement "
-          f"{agree:.5f} (min {FWD_MIN_AGREE})", flush=True)
+    zx, _, _ = serve_counted(
+        fused_mod, infer, argv + ["model.kernel_backend=xla"],
+        os.path.join(WORK, "scores_xla.npz"), N_EVENTS, cfg.model.num_class,
+        "tensor_core", per_batch=0, batch_events=batch_events)
+    d, agree = agreement(z, zx, "kernel vs cudnn forward")
+    print(f"[forward] kernel vs cudnn path on {len(z['scores'])} charge pixels: "
+          f"max softmax diff {d:.3e} (tol {FWD_MAX_SOFTMAX_DIFF}), argmax "
+          f"agreement {agree:.5f} (min {FWD_MIN_AGREE})", flush=True)
 
     B = cfg.data.batch_size
     x = torch.rand(B, S, S, 1, generator=torch.Generator().manual_seed(SEED))
@@ -649,12 +825,13 @@ def main():
         cfg.model, kernel_backend="xla")), model)
     t_auto = time_ms(lambda: serve(x), reps=7)
     t_xla = time_ms(lambda: serve_xla(x), reps=7)
+    k_ms = tc_rec["ms"]
     print(f"[forward] B={B} {S}^2 bf16 forward+softmax: kernel path "
           f"{t_auto:.2f} ms = {B / t_auto * 1e3:.1f} img/s; cudnn path "
           f"{t_xla:.2f} ms = {B / t_xla * 1e3:.1f} img/s; kernel share of the "
           f"kernel-path forward {k_ms / t_auto:.3f} (kernel {k_ms:.2f} ms, "
-          f"its cudnn bf16 composition {c_ms:.2f} ms, plain f32 {p_ms:.2f} ms "
-          f"per forward) | {card}", flush=True)
+          f"its cudnn bf16 composition {tc_rec['library_ms']:.2f} ms, plain "
+          f"f32 {tc_rec['plain_ms']:.2f} ms per forward) | {card}", flush=True)
 
     # 6. where the forward's time goes
     profile_forwards({"kernel path": serve, "cudnn path": serve_xla}, x,
@@ -664,19 +841,25 @@ def main():
     train_phase(cfg_path, cfg, fused_mod, card, dev)
     dw_phase(dev)
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
-    print(json.dumps({"kernels": [{
-        "name": "fused_conv3x3_bn_relu_v2", "route": "cuda",
-        "source": "uresnet_tpu_torch/csrc/conv2d.cu",
-        "replaces": "uresnet_tpu/ops/pallas/conv2d.py:130",
-        "launches": launches, "max_abs_err": worst,
-        "ms": k_ms, "plain_ms": p_ms}, {
-        "name": "fused_conv3x3_bn_relu", "route": "cuda",
-        "source": "uresnet_tpu_torch/csrc/conv2d.cu",
-        "replaces": "uresnet_tpu/ops/pallas/conv2d.py:182",
-        "launches": v1_launches, "max_abs_err": v1_worst,
-        "ms": v1_ms, "plain_ms": v1_plain_ms}]}))
+    leaked = sorted(m for m in sys.modules if m in ("jax", "uresnet_tpu")
+                    or m.startswith(("jax.", "jaxlib", "uresnet_tpu.")))
+    if leaked:
+        raise AssertionError(f"the port imported {leaked}")
+    src = "uresnet_tpu_torch/csrc/conv2d.cu"
+    kernels = [
+        dict(name="fused_conv3x3_bn_relu_v2 (tensor-core kernel)",
+             replaces="uresnet_tpu/ops/pallas/conv2d.py:130", **tc_rec),
+        dict(name="fused_conv3x3_bn_relu_v2 (CUDA-core kernel, f32 path)",
+             replaces="uresnet_tpu/ops/pallas/conv2d.py:130", **cc_rec),
+        dict(name="fused_conv3x3_bn_relu", 
+             replaces="uresnet_tpu/ops/pallas/conv2d.py:182", **v1_rec)]
+    print(json.dumps({"kernels": [
+        {"name": k["name"], "route": "cuda", "source": src,
+         "replaces": k["replaces"], "launches": k["launches"],
+         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+         "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
+        for k in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -684,4 +867,7 @@ def main():
 
 
 if __name__ == "__main__":
+    KERNELS_ONLY = sys.argv[1:] == ["--kernels-only"]
+    if sys.argv[1:] not in ([], ["--kernels-only"]):
+        raise SystemExit(f"usage: {sys.argv[0]} [--kernels-only]")
     main()

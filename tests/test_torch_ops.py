@@ -299,3 +299,32 @@ def test_canonical_dtype():
     assert canonical_dtype("float32") is torch.float32
     with pytest.raises(ValueError, match="unknown dtype"):
         canonical_dtype("float64")
+
+
+@pytest.mark.parametrize("dtype,C,Co,tensor_core", [
+    (torch.bfloat16, 16, 16, True),      # 512^2 level
+    (torch.bfloat16, 512, 256, True),    # 32^2 level
+    (torch.bfloat16, 32, 48, True),      # Co not a power of two
+    (torch.float32, 64, 64, False),      # f32 stays true f32: CUDA cores
+    (torch.bfloat16, 24, 40, False),     # C not a multiple of 16
+    (torch.bfloat16, 16, 8, False),      # Co not a multiple of 16
+])
+def test_kernel_choice_by_dtype_and_shape(dtype, C, Co, tensor_core):
+    """Which kernel a CUDA call runs depends on dtype and shape alone."""
+    assert tfused.uses_tensor_cores(dtype, C, Co) is tensor_core
+
+
+def test_cpu_calls_count_no_kernel(rng):
+    """CPU tensors run the plain version and leave every launch count
+    alone, bf16 and f32 alike."""
+    before = (tfused.launches, tfused.launches_v1, tfused.launches_tensor_core,
+              tfused.launches_cuda_core)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = T(rng.standard_normal((1, 6, 5, 16)).astype(np.float32)).to(dtype)
+        w = T(rng.standard_normal((3, 3, 16, 32)).astype(np.float32)).to(dtype)
+        s, b = torch.ones(32), torch.zeros(32)
+        y = tfused.fused_conv3x3_bn_relu_v2(x, w, s, b)
+        y1 = tfused.fused_conv3x3_bn_relu(x, w, s, b)
+        assert y.dtype == dtype and torch.equal(y, y1)
+    assert (tfused.launches, tfused.launches_v1, tfused.launches_tensor_core,
+            tfused.launches_cuda_core) == before

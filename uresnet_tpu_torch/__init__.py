@@ -1,13 +1,14 @@
 """uresnet_tpu_torch — the PyTorch/CUDA port of uresnet_tpu for NVIDIA Hopper.
 
 The JAX package ``uresnet_tpu`` is the reference this port is held against
-(tests/test_torch_*.py). The port reuses the JAX package's jax-free host
-modules by import — the typed config, the sparse-event data plane and
-loaders, the metrics logger (``uresnet_tpu.config``,
-``uresnet_tpu.data.{events,pipeline,synthetic,loader,pset_compat,cxx_decoder}``,
-``uresnet_tpu.engine.{logging,tb_writer}``) — and re-exports the ones its
-callers need here, so a user of the port imports one package. Nothing in
-this package imports jax.
+(tests/test_torch_*.py). The port is self-contained: it imports neither jax
+nor anything of ``uresnet_tpu``. The jax-free host modules it needs — the
+typed config, the sparse-event data plane and loaders, the metrics logger
+(``config``, ``data.{events,pipeline,synthetic,loader,pset_compat,
+cxx_decoder}``, ``engine.{logging,tb_writer}``) — are the port's own copies,
+held equal to the JAX package's by tests/test_torch_data.py. The ones its
+callers need are re-exported here, so a user of the port imports one
+package.
 
 Ported so far:
 
@@ -28,5 +29,5 @@ Ported so far:
 
 __version__ = "0.1.0"
 
-from uresnet_tpu.config import Config, load_config  # noqa: F401
-from uresnet_tpu.data.synthetic import generate_file  # noqa: F401
+from uresnet_tpu_torch.config import Config, load_config  # noqa: F401
+from uresnet_tpu_torch.data.synthetic import generate_file  # noqa: F401

@@ -17,7 +17,7 @@ import argparse
 
 import torch
 
-from uresnet_tpu.config import Config, apply_overrides, load_config
+from uresnet_tpu_torch.config import Config, apply_overrides, load_config
 from uresnet_tpu_torch.engine.checkpoint import (latest_checkpoint,
                                                  load_serving_state)
 from uresnet_tpu_torch.engine.evaluator import run_inference

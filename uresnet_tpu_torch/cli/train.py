@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import argparse
 
-from uresnet_tpu.config import Config, apply_overrides, load_config
+from uresnet_tpu_torch.config import Config, apply_overrides, load_config
 from uresnet_tpu_torch.engine.trainer import Trainer
 
 
@@ -25,8 +25,9 @@ def main(argv=None):
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in checkpoint_dir")
     p.add_argument("--iterations", type=int, default=None)
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available, else cpu)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (default: cuda; the CPU "
+                        "only when asked with --device cpu)")
     p.add_argument("--distributed", action="store_true",
                    help="multi-process training (not ported yet)")
     p.add_argument("--profile", default=None, metavar="DIR",

@@ -17,9 +17,9 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from uresnet_tpu.config import Config
-from uresnet_tpu.data import events as ev
-from uresnet_tpu.data.pipeline import densify_batch
+from uresnet_tpu_torch.config import Config
+from uresnet_tpu_torch.data import events as ev
+from uresnet_tpu_torch.data.pipeline import densify_batch
 from uresnet_tpu_torch.engine.metrics import metrics_from_counts
 
 def _write_npz(output_file: str, columns: Dict[str, list], *, dims: int,

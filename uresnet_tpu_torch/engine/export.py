@@ -11,7 +11,7 @@ from typing import Callable
 
 import torch
 
-from uresnet_tpu.config import Config
+from uresnet_tpu_torch.config import Config
 from uresnet_tpu_torch.models.convert import trees
 from uresnet_tpu_torch.models.fold import (fold_batchnorm, kernel_operands,
                                             uresnet_apply_folded)

@@ -20,7 +20,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from uresnet_tpu.config import OptimConfig
+from uresnet_tpu_torch.config import OptimConfig
 
 Leaves = Dict[str, torch.Tensor]
 

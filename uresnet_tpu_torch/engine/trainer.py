@@ -32,9 +32,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from uresnet_tpu.config import Config
-from uresnet_tpu.data.loader import make_batch_loader
-from uresnet_tpu.engine.logging import MetricsLogger
+from uresnet_tpu_torch.config import Config
+from uresnet_tpu_torch.data.loader import make_batch_loader
+from uresnet_tpu_torch.engine.logging import MetricsLogger
 from uresnet_tpu_torch.data.device_pipeline import (densify_on_device,
                                                     draw_decisions)
 from uresnet_tpu_torch.data.prefetch import device_prefetch
@@ -65,7 +65,7 @@ def _key_seed(key: np.ndarray) -> int:
 
 
 class Trainer:
-    def __init__(self, cfg: Config, *, device=None):
+    def __init__(self, cfg: Config, *, device="cuda"):
         for axis in ("data", "spatial", "model"):
             if getattr(cfg.parallel, axis) > 1:
                 raise NotImplementedError(
@@ -79,8 +79,7 @@ class Trainer:
                 f"model.kernel_backend must be one of {KERNEL_BACKENDS}, got "
                 f"{cfg.model.kernel_backend!r}")
         self.cfg = cfg
-        self.device = torch.device(
-            device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = torch.device(device)
         if cfg.model.compute_dtype == "float32":
             # f32 means true f32, as JAX's Precision.HIGHEST: no TF32
             torch.backends.cudnn.allow_tf32 = False

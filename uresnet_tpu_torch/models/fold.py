@@ -18,7 +18,7 @@ from typing import Any, Dict
 
 import torch
 
-from uresnet_tpu.config import ModelConfig
+from uresnet_tpu_torch.config import ModelConfig
 from uresnet_tpu_torch.ops.conv import conv, conv_transpose, head_precision
 from uresnet_tpu_torch.ops.cuda.conv2d import fused_conv3x3_bn_relu_v2
 from uresnet_tpu_torch.utils.dtypes import canonical_dtype

@@ -31,7 +31,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from uresnet_tpu.config import ModelConfig
+from uresnet_tpu_torch.config import ModelConfig
 from uresnet_tpu_torch.models.blocks import BlockCtx, Conv, ConvBN, ResBlock
 from uresnet_tpu_torch.ops.conv import check_dims, conv, head_precision
 from uresnet_tpu_torch.utils.dtypes import canonical_dtype

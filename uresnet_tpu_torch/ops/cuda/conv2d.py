@@ -2,15 +2,21 @@
 plain version.
 
 Port of uresnet_tpu/ops/pallas/conv2d.py::fused_conv3x3_bn_relu_v2; the
-kernel is csrc/conv2d.cu. ``block_h`` is gone: it was TPU tiling. The v1
+kernels are csrc/conv2d.cu. ``block_h`` is gone: it was TPU tiling. The v1
 Pallas kernel ``fused_conv3x3_bn_relu`` computes the same function with
-another TPU blocking; its name is bound here to the same kernel and plain
+another TPU blocking; its name is bound here to the same kernels and plain
 version.
 
-Both wrappers launch the kernel for CUDA tensors — or raise; they never
-fall back — and run the plain version for CPU tensors. ``launches`` (v2)
-and ``launches_v1`` count kernel launches (not plain-version calls), so a
-run can show that its path went through the kernel.
+A CUDA call goes to one of two kernels, chosen by dtype and shape alone
+(`uses_tensor_cores`): bf16 with C and Co multiples of 16 — every conv of
+the serving forward — runs the tensor-core kernel; f32 (true f32, never
+TF32) and other channel counts run the CUDA-core kernel.
+
+Both wrappers launch a kernel for CUDA tensors — or raise; they never fall
+back — and run the plain version for CPU tensors. ``launches`` (v2) and
+``launches_v1`` count launches by entry point, ``launches_tensor_core`` and
+``launches_cuda_core`` by kernel (plain-version calls count nowhere), so a
+run can show which kernel served its path.
 """
 
 from __future__ import annotations
@@ -24,9 +30,13 @@ import torch.nn.functional as F
 
 launches = 0
 launches_v1 = 0
+launches_tensor_core = 0
+launches_cuda_core = 0
 
+# the CUDA-core kernel's entry by dtype; the tensor-core kernel's entry
 _ENTRY = {torch.float32: "uresnet_fused_conv3x3_f32",
           torch.bfloat16: "uresnet_fused_conv3x3_bf16"}
+_TC_ENTRY = "uresnet_fused_conv3x3_bf16_tc"
 
 
 @functools.lru_cache(maxsize=None)
@@ -35,7 +45,7 @@ def _lib() -> ctypes.CDLL:
     from uresnet_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
-    for name in _ENTRY.values():
+    for name in (*_ENTRY.values(), _TC_ENTRY):
         fn = getattr(lib, name)
         # x, w, scale, bias, residual, out; B, H, W, C, Co, relu; stream
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -81,8 +91,15 @@ def _check(x, w, scale, bias, residual):
     return B, H, W, C, Co
 
 
+def uses_tensor_cores(dtype: torch.dtype, C: int, Co: int) -> bool:
+    """Whether a CUDA call runs the tensor-core kernel: bf16 with C and Co
+    multiples of 16 (the bf16 MMA's depth and the kernel's channel tiles).
+    Otherwise the CUDA-core kernel runs."""
+    return dtype == torch.bfloat16 and C % 16 == 0 and Co % 16 == 0
+
+
 def _fused(x, w, scale, bias, residual, relu):
-    """(output, whether the kernel was launched)."""
+    """(output, whether a kernel was launched)."""
     B, H, W, C, Co = _check(x, w, scale, bias, residual)
     if x.device.type == "cpu":
         return fused_conv3x3_bn_relu_v2_reference(x, w, scale, bias, residual,
@@ -100,7 +117,11 @@ def _fused(x, w, scale, bias, residual, relu):
     if out.numel() == 0:
         return out, False
     lib = _lib()
-    fn = getattr(lib, _ENTRY[x.dtype])
+    tensor_core = uses_tensor_cores(x.dtype, C, Co)
+    if tensor_core and any(t.data_ptr() % 16 for t in tensors + (out,)):
+        raise ValueError("the tensor-core kernel needs 16-byte aligned "
+                         "operands (a tensor starts inside its storage)")
+    fn = getattr(lib, _TC_ENTRY if tensor_core else _ENTRY[x.dtype])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
@@ -109,6 +130,11 @@ def _fused(x, w, scale, bias, residual, relu):
     if err != 0:
         msg = lib.uresnet_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_conv3x3 launch failed: CUDA error {err} ({msg})")
+    global launches_tensor_core, launches_cuda_core
+    if tensor_core:
+        launches_tensor_core += 1
+    else:
+        launches_cuda_core += 1
     return out, True
 
 
@@ -128,7 +154,7 @@ def fused_conv3x3_bn_relu_v2(x: torch.Tensor, w: torch.Tensor,
 
 
 # v1 (uresnet_tpu/ops/pallas/conv2d.py:182): the same function, so the same
-# kernel and the same plain version.
+# kernels and the same plain version.
 fused_conv3x3_bn_relu_reference = fused_conv3x3_bn_relu_v2_reference
 
 
@@ -136,8 +162,8 @@ def fused_conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor,
                           scale: torch.Tensor, bias: torch.Tensor,
                           residual: Optional[torch.Tensor] = None, *,
                           relu: bool = True) -> torch.Tensor:
-    """The v1 entry point: `fused_conv3x3_bn_relu_v2`'s kernel and operands,
-    counted in ``launches_v1``."""
+    """The v1 entry point: `fused_conv3x3_bn_relu_v2`'s kernels and
+    operands, counted in ``launches_v1``."""
     out, launched = _fused(x, w, scale, bias, residual, relu)
     global launches_v1
     launches_v1 += launched
