@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving and training paths at the flagship width of
+Drives the port's serving, training and analysis paths at the flagship width of
 configs/train_2d_512.yaml (2D U-ResNet, base 16, depth 5, 2 blocks per
 level, 3 classes, bf16, 512^2, batch 32) with random seeded weights:
 
@@ -21,9 +21,10 @@ level, 3 classes, bf16, 512^2, batch 32) with random seeded weights:
                 version and the cuDNN bf16 composition; the CUDA-core kernel likewise at the f32
                 forward's shapes; the v1 entry point at two shapes;
   4. serve    — 64 synthetic 512^2 events through ``python -m
-                uresnet_tpu_torch.cli.infer`` (2 batches of 32) from a
-                checkpoint in the JAX npz layout; checks the export and that
-                the tensor-core kernel launched exactly 44 times per batch;
+                uresnet_tpu_torch.cli.infer`` (2 batches of 32, the default
+                streamed sparse export) from a checkpoint in the JAX npz
+                layout; checks the export and that the tensor-core kernel
+                launched exactly 44 times per batch;
   4b. serve32 — the same events with ``model.compute_dtype=float32``: the
                 CUDA-core kernel launches 44 times per batch, and the scores
                 agree with the bf16 run's;
@@ -37,13 +38,25 @@ level, 3 classes, bf16, 512^2, batch 32) with random seeded weights:
   7. train    — 30 steps of ``python -m uresnet_tpu_torch.cli.train`` on
                 synthetic 512^2 events (sparse transfer, densify on the
                 device, class-balance weights, Adam with the cosine
-                schedule); checks the logged losses and the checkpoint's
-                JAX key layout, serves 32 events from it through
-                ``cli.infer`` (exactly 44 kernel launches), times
+                schedule) with one ``train.val_exact`` validation at the
+                last step (``evaluate_dataset`` over the held-out file);
+                checks the logged losses, the validation's event count and
+                the checkpoint's JAX key layout, serves 32 events from it
+                through ``cli.infer`` (exactly 44 kernel launches), times
                 ``train_step_light`` and profiles 3 steps (appended to
                 profile.txt);
   7b. dw      — the bf16 conv's f32 weight gradient vs float64 at a
-                flagship shape, and its data gradient vs stock autograd.
+                flagship shape, and its data gradient vs stock autograd;
+  8. ana      — the analysis surface on phase 4's checkpoint and events:
+                ``cli.infer`` in its default sparse export, ``--export
+                dense`` and ``--format usef``, and ``run_inference`` on the
+                host-densify path, each with exactly 44 tensor-core
+                launches per batch; the three npz exports are bit-equal and the
+                USEF file holds the npz scores; ``--metrics-only --input``
+                gives the sparse pass's mIoU; ``--tiled`` scores every
+                point of 16 events of 1024^2; then the passes' wall times
+                over 128 events (readback groups 1 and 4) and the device
+                time of the ana steps and their readbacks.
 
 Then one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -80,6 +93,7 @@ SEED = 0
 N_EVENTS = 64
 TRAIN_EVENTS = 256
 TRAIN_STEPS = 30
+ANA_EVENTS = 128  # phase 8's timed passes
 
 # configs/train_2d_512.yaml, written out so no YAML parser is needed. The
 # port serves canonical: pack/pack_extra_h are accepted and ignored.
@@ -510,27 +524,39 @@ def check_export(path, stats, n_events, num_class):
     return z
 
 
-def serve_counted(fused_mod, infer, argv, out, n_events, num_class, kernel,
-                  per_batch=44, batch_events=32):
-    """cli.infer with every launch counter set to 0 just before and read just
-    after: the entry point ``launches`` and the kernel named by ``kernel``
-    ('tensor_core' or 'cuda_core') must count ``per_batch`` per batch, the
-    other kernel none. Returns (npz, the counts, wall s)."""
+def counted(fused_mod, fn):
+    """``fn()`` with every launch counter set to 0 just before and read just
+    after. Returns (its result, the counts, wall s)."""
     fused_mod.launches = fused_mod.launches_v1 = 0
     fused_mod.launches_tensor_core = fused_mod.launches_cuda_core = 0
     t0 = time.time()
-    stats = run_cli(infer, argv + ["--output", out])
+    result = fn()
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = {"v2": fused_mod.launches,
-              "tensor_core": fused_mod.launches_tensor_core,
-              "cuda_core": fused_mod.launches_cuda_core}
-    n = per_batch * -(-n_events // batch_events)
+    return result, {"v2": fused_mod.launches,
+                    "tensor_core": fused_mod.launches_tensor_core,
+                    "cuda_core": fused_mod.launches_cuda_core}, wall
+
+
+def expect_launches(counts, n_batches, kernel="tensor_core", per_batch=44):
+    """The entry point ``launches`` and the kernel named by ``kernel``
+    ('tensor_core' or 'cuda_core') counted ``per_batch`` per batch, the
+    other kernel none."""
+    n = per_batch * n_batches
     want = {"v2": n, "tensor_core": 0, "cuda_core": 0}
     want[kernel] = n
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != {want}")
-    return check_export(out, stats, n_events, num_class), counts, wall
+
+
+def serve_counted(fused_mod, infer, argv, out, n_events, num_class, kernel,
+                  per_batch=44, batch_events=32):
+    """cli.infer, counted (`counted`, `expect_launches`). Returns (npz, its
+    metrics, the counts, wall s)."""
+    stats, counts, wall = counted(
+        fused_mod, lambda: run_cli(infer, argv + ["--output", out]))
+    expect_launches(counts, -(-n_events // batch_events), kernel, per_batch)
+    return check_export(out, stats, n_events, num_class), stats, counts, wall
 
 
 def agreement(z, zx, what):
@@ -546,6 +572,14 @@ def agreement(z, zx, what):
                              f"{FWD_MAX_SOFTMAX_DIFF}), argmax agreement "
                              f"{agree} (min {FWD_MIN_AGREE})")
     return d, agree
+
+
+def identical(z, zx, what):
+    """Two exports of the same forward over the same pixels: every column
+    bit-equal."""
+    for k in ("event_id", "plane_id", "coords", "label", "scores", "pred"):
+        if not np.array_equal(z[k], zx[k]):
+            raise AssertionError(f"{what}: export column {k} differs")
 
 
 def train_phase(cfg_path, cfg, fused_mod, card, dev):
@@ -564,8 +598,8 @@ def train_phase(cfg_path, cfg, fused_mod, card, dev):
     ckpt_dir, log_dir = os.path.join(WORK, "train_ckpt"), os.path.join(WORK, "train_log")
     overrides = [f"data.input_files={train_file}", "data.synthetic=false",
                  "train.summary_iter=10", "train.checkpoint_iter=0",
-                 "train.val_iter=0", f"train.checkpoint_dir={ckpt_dir}",
-                 f"train.log_dir={log_dir}"]
+                 f"train.val_iter={TRAIN_STEPS}", "train.val_exact=true",
+                 f"train.checkpoint_dir={ckpt_dir}", f"train.log_dir={log_dir}"]
     run_cli(train, [cfg_path, *overrides, "--iterations", str(TRAIN_STEPS),
                     "--device", DEVICE], tag="train")
     torch.cuda.synchronize()
@@ -576,6 +610,15 @@ def train_phase(cfg_path, cfg, fused_mod, card, dev):
         raise AssertionError(f"logged steps {[r['step'] for r in rows]}")
     if not all(np.isfinite(r["loss"]) for r in rows):
         raise AssertionError(f"non-finite loss: {[r['loss'] for r in rows]}")
+    # the exactly-once validation: the held-out file (the training file
+    # here) counted once
+    with open(os.path.join(log_dir, "val_metrics.jsonl")) as f:
+        val = [json.loads(line) for line in f]
+    if ([v["step"] for v in val] != [TRAIN_STEPS]
+            or val[0]["n_events"] != TRAIN_EVENTS
+            or val[0]["n_pixels"] != TRAIN_EVENTS * S * S
+            or not np.isfinite(val[0]["loss"])):
+        raise AssertionError(f"val_exact validation {val}")
     ckpt = os.path.join(ckpt_dir, f"step_{TRAIN_STEPS:08d}.npz")
     tcfg = load_config(cfg_path, overrides)
     tr = Trainer(tcfg, device=dev)
@@ -590,18 +633,24 @@ def train_phase(cfg_path, cfg, fused_mod, card, dev):
                              f"{ts.opt.step}; keys missing "
                              f"{sorted(want - keys)[:5]}, extra "
                              f"{sorted(keys - want)[:5]}")
-    print(f"[train]   {TRAIN_STEPS} steps in {wall:.2f} s wall (incl. data "
-          f"generation, loader start, first-step setup); losses "
+    # the validation's own time, from the two logs' clocks: the val row is
+    # written when it ends, the last train row just before it starts
+    val_s = val[0]["wall_s"] - rows[-1]["wall_s"]
+    print(f"[train]   {TRAIN_STEPS} steps in {wall - val_s:.2f} s wall (incl. "
+          f"data generation, loader start, first-step setup; without the "
+          f"val_exact validation, {val_s:.2f} s by the logs' wall_s); losses "
           f"{[round(r['loss'], 4) for r in rows]} finite; checkpoint holds the "
           f"{len(keys)} leaves of the JAX layout and restores at step {step}, "
-          f"data cursor {cursor}", flush=True)
+          f"data cursor {cursor}; val_exact validation at step "
+          f"{val[0]['step']}: n_events {val[0]['n_events']:.0f}, miou "
+          f"{val[0]['miou']:.6f}, loss {val[0]['loss']:.6f}", flush=True)
 
     # serve from the trained checkpoint
     n_serve = cfg.data.batch_size // len(planes)
     events = generate_file(os.path.join(WORK, "serve32.usef"), n_serve,
                            seed=SEED + 2, shape=(S, S), planes=planes)
     out = os.path.join(WORK, "scores_trained.npz")
-    _, counts, _ = serve_counted(
+    _, _, counts, _ = serve_counted(
         fused_mod, infer, [cfg_path, "--checkpoint", ckpt, "--input", events,
                            "--device", DEVICE], out, n_serve,
         cfg.model.num_class, "tensor_core")
@@ -728,6 +777,224 @@ def dw_phase(dev):
               f"autograd", flush=True)
 
 
+def ana_state(cfg_path, ckpt, dev, overrides=()):
+    """The trainer and state ``cli.infer`` builds: the config, a Trainer on
+    ``dev`` and the checkpoint's params and BN state."""
+    from uresnet_tpu_torch import load_config
+    from uresnet_tpu_torch.engine.checkpoint import load_serving_state
+    from uresnet_tpu_torch.engine.trainer import Trainer
+    from uresnet_tpu_torch.models.convert import load_jax_params
+
+    tr = Trainer(load_config(cfg_path, list(overrides)), device=dev)
+    ts = tr.init_state()
+    load_jax_params(ts.model, *load_serving_state(ckpt)[:2])
+    return tr, ts
+
+
+def check_usef(path, src, z, cfg):
+    """The USEF writeback of ``src`` against the npz export ``z`` of the
+    same events: per input plane p the planes p*num_class+cls, at the
+    in-window points in detector coords (file order), labels the argmax,
+    values equal to the npz scores at the exported pixels (npz coords are
+    window coords: the host window, equal to the device's, maps them)."""
+    from uresnet_tpu_torch.data import events as ev
+    from uresnet_tpu_torch.data.pipeline import crop_or_pad_coords
+    from uresnet_tpu_torch.engine.evaluator import score_plane_id
+
+    S, C = cfg.data.image_size, cfg.model.num_class
+    back, inputs = ev.read_events(path), ev.read_events(src)
+    if len(back) != len(inputs):
+        raise AssertionError(f"usef: {len(back)} events != {len(inputs)}")
+    hits = 0
+    for eidx, (eo, ei) in enumerate(zip(back, inputs)):
+        by_id = {p.plane_id: p for p in eo.planes}
+        want_ids = {score_plane_id(pid, c, C) for pid in cfg.data.planes
+                    for c in range(C)}
+        if set(by_id) != want_ids:
+            raise AssertionError(f"usef event {eidx}: plane ids {sorted(by_id)}")
+        for pin in ei.planes:
+            if pin.plane_id not in cfg.data.planes:
+                continue
+            cls = [by_id[score_plane_id(pin.plane_id, c, C)] for c in range(C)]
+            shifted, inwin = crop_or_pad_coords(pin.coords, pin.shape, S,
+                                                values=pin.values)
+            sc = np.stack([p.values for p in cls], 1)
+            if (any(not np.array_equal(p.coords, pin.coords[inwin]) for p in cls)
+                    or any(tuple(p.shape) != tuple(pin.shape) for p in cls)
+                    or not np.array_equal(cls[0].labels, sc.argmax(1))):
+                raise AssertionError(f"usef event {eidx} plane {pin.plane_id}: "
+                                     f"coords, shape or labels wrong")
+            origin = (pin.coords[inwin][0] - shifted[inwin][0]) if inwin.any() else 0
+            at = dict(zip(map(tuple, pin.coords[inwin].tolist()), sc))
+            sel = (z["event_id"] == eidx) & (z["plane_id"] == pin.plane_id)
+            for c, s in zip((z["coords"][sel] + origin).tolist(), z["scores"][sel]):
+                if not np.array_equal(at[tuple(c)], s):
+                    raise AssertionError(f"usef event {eidx}: scores at {c} "
+                                         f"{at[tuple(c)]} != npz {s}")
+                hits += 1
+    if hits != len(z["scores"]):
+        raise AssertionError(f"usef holds {hits} of {len(z['scores'])} npz pixels")
+    return hits
+
+
+def ana_phase(cfg_path, cfg, ckpt, events, fused_mod, card, dev):
+    """Phase 8: the analysis surface at the flagship width (see the module
+    docstring)."""
+    from uresnet_tpu_torch import generate_file
+    from uresnet_tpu_torch.cli import infer
+    from uresnet_tpu_torch.data import events as ev
+    from uresnet_tpu_torch.data.loader import make_batch_loader
+    from uresnet_tpu_torch.engine import evaluator
+    from uresnet_tpu_torch.engine.export import build_logits_fn
+
+    S, C = cfg.data.image_size, cfg.model.num_class
+    planes = tuple(cfg.data.planes)
+    be = cfg.data.batch_size // len(planes)
+    argv = [cfg_path, "--checkpoint", ckpt, "--input", events, "--device", DEVICE]
+    out = {m: os.path.join(WORK, f"ana_{m}.npz") for m in ("sparse", "dense", "host")}
+
+    # 8a. the three exports and the USEF writeback, each counted
+    z, st, cnt = {}, {}, {}
+    for mode, extra in (("sparse", []), ("dense", ["--export", "dense"])):
+        z[mode], st[mode], cnt[mode], _ = serve_counted(
+            fused_mod, infer, argv + extra, out[mode], N_EVENTS, C,
+            "tensor_core", batch_events=be)
+    tr, ts = ana_state(cfg_path, ckpt, dev)
+    st["host"], cnt["host"], _ = counted(fused_mod, lambda: evaluator.run_inference(
+        tr, ts, events, out["host"], streamed=False))
+    expect_launches(cnt["host"], -(-N_EVENTS // be))
+    z["host"] = check_export(out["host"], st["host"], N_EVENTS, C)
+    usef = os.path.join(WORK, "ana_scores.usef")
+    _, cnt["usef"], _ = counted(fused_mod, lambda: run_cli(
+        infer, argv + ["--format", "usef", "--output", usef], tag="ana"))
+    expect_launches(cnt["usef"], -(-N_EVENTS // be))
+    for m in ("dense", "host"):
+        identical(z[m], z["sparse"], f"{m} vs sparse export")
+    hits = check_usef(usef, events, z["sparse"], cfg)
+    print(f"[ana]     {N_EVENTS} events: sparse, dense, host exports of "
+          f"{len(z['sparse']['scores'])} charge pixels bit-equal in every "
+          f"column (scores and pred included); usef writeback "
+          f"holds the npz scores at all {hits} pixels; kernel launches "
+          f"{ {m: c['tensor_core'] for m, c in cnt.items()} } (= 44 per batch, "
+          f"no CUDA-core launch)", flush=True)
+
+    # 8b. the exactly-once gate on the same file: the sparse pass's counts
+    m, counts, _ = counted(fused_mod, lambda: run_cli(
+        infer, argv + ["--metrics-only"], tag="ana"))
+    expect_launches(counts, -(-N_EVENTS // be))
+    if (m["n_events"] != N_EVENTS or m["n_pixels"] != N_EVENTS * S * S
+            or abs(m["miou"] - st["sparse"]["miou"]) > 1e-9):
+        raise AssertionError(f"--metrics-only {m} vs the sparse pass's miou "
+                             f"{st['sparse']['miou']}")
+    print(f"[ana]     --metrics-only: n_events {m['n_events']:.0f}, n_pixels "
+          f"{m['n_pixels']:.0f}, miou {m['miou']!r} (sparse pass "
+          f"{st['sparse']['miou']!r}), loss {m['loss']:.6f}; launches {counts}",
+          flush=True)
+
+    # 8c. full coverage of events larger than one window
+    big = generate_file(os.path.join(WORK, "ana_1024.usef"), 16, seed=SEED + 5,
+                        shape=(2 * S, 2 * S), planes=planes)
+    tiled = os.path.join(WORK, "ana_tiled.usef")
+    mt, counts, wall = counted(fused_mod, lambda: run_cli(
+        infer, [cfg_path, "--checkpoint", ckpt, "--input", big, "--tiled",
+                "--format", "usef", "--output", tiled, "--device", DEVICE],
+        tag="ana"))
+    expect_launches(counts, -(-int(mt["n_tiles"]) // cfg.data.batch_size))
+    n_pts = n_scored = 0
+    for eo, ei in zip(ev.read_events(tiled), ev.read_events(big)):
+        by_id = {p.plane_id: p for p in eo.planes}
+        for pin in ei.planes:
+            sc = np.stack([by_id[pin.plane_id * C + c].values for c in range(C)], 1)
+            if (not np.array_equal(by_id[pin.plane_id * C].coords, pin.coords)
+                    or not np.isfinite(sc).all()):
+                raise AssertionError("tiled: a point is missing or not scored")
+            n_pts += len(pin.values)
+            n_scored += len(sc)
+    if n_scored != n_pts or n_pts == 0:
+        raise AssertionError(f"tiled: {n_scored} of {n_pts} points scored")
+    print(f"[ana]     --tiled: 16 events of {2 * S}^2, {int(mt['n_tiles'])} "
+          f"tiles, all {n_pts} charge points scored (finite, file order); "
+          f"launches {counts} (= 44 per {cfg.data.batch_size} tile rows); "
+          f"{wall:.2f} s wall", flush=True)
+
+    # 8d. wall times of the passes over ANA_EVENTS events
+    n_time = ANA_EVENTS
+    ana128 = generate_file(os.path.join(WORK, "ana_128.usef"), n_time,
+                           seed=SEED + 6, shape=(S, S), planes=planes)
+    o = os.path.join(WORK, "ana_timed.npz")
+    walls = {}
+    # the two readback groups in turns (K 1, 4, 4, 1) within each mode
+    for name, kw in [("sparse", dict(readback_group=k)) for k in (1, 4, 4, 1)] + [
+            ("dense", dict(export="dense", readback_group=k)) for k in (1, 4, 4, 1)] + [
+            ("host", dict(streamed=False)), ("tiled", dict(tiled=True))]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluator.run_inference(tr, ts, ana128, o, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        key = name + (f" K={kw['readback_group']}" if "readback_group" in kw else "")
+        walls.setdefault(key, []).append(wall)
+        print(f"[ana]     {key}: {n_time} events in {wall:.3f} s = "
+              f"{n_time / wall:.1f} events/s (run_inference, {n_time // be} "
+              f"batches of {be}) | {card}", flush=True)
+    # where the host's time goes in the default pass: the main thread's
+    # profile (the loader's decode threads are not in it)
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    evaluator.run_inference(tr, ts, ana128, o, readback_group=4)
+    torch.cuda.synchronize()
+    prof.disable()
+    buf = io.StringIO()
+    pstats.Stats(prof, stream=buf).sort_stats("tottime").print_stats(12)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    start = next(i for i, ln in enumerate(lines) if ln.lstrip().startswith("ncalls"))
+    print("[ana]     main-thread profile of the sparse K=4 pass, by own time:",
+          flush=True)
+    for ln in lines[start - 1:start + 13]:
+        print(f"[ana]       {ln.strip()[:150]}", flush=True)
+
+    # the device time of one batch's steps and readbacks, CUDA events
+    dcfg = dataclasses.replace(
+        cfg.data, input_files=(ana128,), synthetic=False, random_access=False,
+        weight_mode="ones", transfer="sparse",
+        max_points=max(cfg.data.max_points, -(-ev.max_plane_points(ana128, planes) // 256) * 256))
+    loader = make_batch_loader(dcfg, num_class=C, train=False)
+    try:
+        host = loader.next()
+    finally:
+        loader.stop()
+        if hasattr(loader, "close"):
+            loader.close()
+    host.pop("cursor", None)
+    batch = tr.device_batch(host)
+    logits_fn = build_logits_fn(tr.cfg, ts.model)
+    sparse = dict(batch, row_valid=torch.ones(cfg.data.batch_size, device=dev))
+    t_sparse = time_ms(lambda: evaluator._ana_step_sparse(tr.cfg, logits_fn, sparse), reps=7)
+    t_dense = time_ms(lambda: evaluator._ana_step(tr.cfg, logits_fn, batch), reps=7)
+    t_fwd = time_ms(lambda: logits_fn(evaluator._densify_ones(tr.cfg, batch)["data"]), reps=7)
+    outs = {"sparse": evaluator._ana_step_sparse(tr.cfg, logits_fn, sparse),
+            "dense": evaluator._ana_step(tr.cfg, logits_fn, batch)}
+    rb = {k: time_ms(lambda: evaluator._readback(v), reps=7) for k, v in outs.items()}
+    mb = {k: sum(t.numel() * t.element_size() for t in v.values()) / 1e6
+          for k, v in outs.items()}
+    print(f"[ana]     device per batch of {cfg.data.batch_size} (median of 7): "
+          f"sparse step {t_sparse:.3f} ms (densify + forward {t_fwd:.3f}, then "
+          f"softmax, gather, counts), dense step {t_dense:.3f} ms; readback "
+          f"sparse {mb['sparse']:.2f} MB {rb['sparse']:.3f} ms, dense "
+          f"{mb['dense']:.2f} MB {rb['dense']:.3f} ms | {card}", flush=True)
+    n_b = n_time // be
+    for key, ws in walls.items():
+        wall = float(np.median(ws))
+        dev_ms = t_dense if key.startswith(("dense", "host")) else t_sparse
+        print(f"[ana]     {key}: device steps {n_b * dev_ms:.1f} ms of "
+              f"{wall * 1e3:.1f} ms wall (median of {len(ws)}; share "
+              f"{n_b * dev_ms / (wall * 1e3):.3f}); the rest is host work",
+              flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch")
@@ -788,16 +1055,17 @@ def main():
                            seed=SEED, shape=(S, S), planes=tuple(cfg.data.planes))
     argv = [cfg_path, "--checkpoint", ckpt, "--input", events, "--device", DEVICE]
     batch_events = cfg.data.batch_size // len(cfg.data.planes)
-    z, counts, wall = serve_counted(
+    z, stats_auto, counts, wall = serve_counted(
         fused_mod, infer, argv, os.path.join(WORK, "scores_auto.npz"),
         N_EVENTS, cfg.model.num_class, "tensor_core", batch_events=batch_events)
     tc_rec["launches"] = counts["tensor_core"]
     print(f"[serve]   {N_EVENTS} events, {len(z['scores'])} charge pixels "
           f"exported, kernel launches {counts} (= 44 per batch, tensor-core "
-          f"kernel), {wall:.2f} s wall incl. host densify/export", flush=True)
+          f"kernel), {wall:.2f} s wall incl. checkpoint restore, streamed "
+          f"sparse export", flush=True)
 
     # 4b. the f32 serving path (CUDA-core kernel), held to the bf16 one
-    z32, counts, wall = serve_counted(
+    z32, _, counts, wall = serve_counted(
         fused_mod, infer, argv + ["model.compute_dtype=float32"],
         os.path.join(WORK, "scores_f32.npz"), N_EVENTS, cfg.model.num_class,
         "cuda_core", batch_events=batch_events)
@@ -809,7 +1077,7 @@ def main():
           f"agreement {agree:.5f}", flush=True)
 
     # 5. whole forward: kernel vs plain (cuDNN) path
-    zx, _, _ = serve_counted(
+    zx, _, _, _ = serve_counted(
         fused_mod, infer, argv + ["model.kernel_backend=xla"],
         os.path.join(WORK, "scores_xla.npz"), N_EVENTS, cfg.model.num_class,
         "tensor_core", per_batch=0, batch_events=batch_events)
@@ -840,6 +1108,9 @@ def main():
     # 7. the training path; 7b. the f32 weight gradient on the card
     train_phase(cfg_path, cfg, fused_mod, card, dev)
     dw_phase(dev)
+
+    # 8. the analysis surface on phase 4's checkpoint and events
+    ana_phase(cfg_path, cfg, ckpt, events, fused_mod, card, dev)
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "uresnet_tpu")
                     or m.startswith(("jax.", "jaxlib", "uresnet_tpu.")))

@@ -1,7 +1,9 @@
-"""The whole serving slice on the CPU: the port's CLI (checkpoint restore ->
-BN fold -> folded forward with the kernel dispatch -> softmax -> npz export
-and dataset metrics) vs the JAX package's ``run_inference`` on its
-host-densify dense path, from one JAX checkpoint and one event file."""
+"""The whole serving slice on the CPU: the port's CLI in its default mode
+(checkpoint restore -> BN fold -> streamed sparse export through the folded
+forward with the kernel dispatch -> npz export and dataset metrics) vs the
+JAX package's ``run_inference`` on its host-densify dense path, from one
+JAX checkpoint and one event file. The other modes are held against the
+JAX package in tests/test_torch_ana.py."""
 
 import ast
 import json
@@ -70,20 +72,6 @@ def test_cli_matches_jax_run_inference(setup, capsys):
     for k, v in want_stats.items():
         assert stats[k] == pytest.approx(v, abs=1e-6), k
     assert stats["n_events"] == 5
-
-
-@pytest.mark.parametrize("flag", [["--tiled"], ["--export", "sparse"],
-                                  ["--format", "usef"], ["--metrics-only"],
-                                  []])
-def test_cli_unported_modes_error(setup, capsys, flag):
-    cfg_path, ckpt, path, _, tmp = setup
-    argv = [str(cfg_path), "--checkpoint", ckpt, "--device", "cpu"] + flag
-    if flag:
-        argv += ["--input", path]
-    with pytest.raises(SystemExit) as e:
-        infer.main(argv)
-    assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().err
 
 
 def test_cli_without_checkpoint(setup, tmp_path):

@@ -230,7 +230,7 @@ def test_freeze_prunes_and_keeps(jax_run):
 
 @pytest.mark.parametrize("field,value", [
     ("parallel.data", 2), ("parallel.spatial", 2), ("parallel.model", 2),
-    ("train.val_exact", True), ("model.dims", 3)])
+    ("model.dims", 3)])
 def test_refuses_unported(tmp_path, field, value):
     cfg = tiny_cfg(tmp_path)
     section, name = field.split(".")

@@ -12,10 +12,13 @@ package.
 
 Ported so far:
 
-* the BN-folded serving path (``cli/infer.py`` -> ``engine/evaluator.py``
-  -> ``engine/export.py`` -> ``models/fold.py``), whose 3x3 residual-block
-  convs run through a hand-written CUDA kernel (``csrc/conv2d.cu``,
-  ``ops/cuda/conv2d.py``, bound to both Pallas entry points);
+* the BN-folded serving and analysis path (``cli/infer.py`` ->
+  ``engine/evaluator.py``: streamed sparse, dense and tiled score exports
+  in npz or USEF, the host-densify oracle, the exactly-once
+  ``evaluate_dataset`` -> ``engine/export.py`` -> ``models/fold.py``),
+  whose 3x3 residual-block convs run through a hand-written CUDA kernel
+  (``csrc/conv2d.cu``, ``ops/cuda/conv2d.py``, bound to both Pallas entry
+  points);
 * the 2D training path (``cli/train.py`` -> ``engine/trainer.py``):
   sparse batches staged by ``data/prefetch.py`` and densified on the device
   (``data/device_pipeline.py``, ``engine/augment.py``), the train-mode

@@ -178,3 +178,23 @@ def densify_on_device(sparse: Batch, *, image_size: int, num_class: int = 3,
     img = (B,) + (T,) * D
     return {"data": data.reshape(img + (1,)), "label": label.reshape(img),
             "weight": weight.reshape(img)}
+
+
+def scores_at_points(sparse: Batch, scores: torch.Tensor, *,
+                     image_size: int) -> torch.Tensor:
+    """Per-pixel scores (B, *S, C) gathered back at the sparse batch's
+    points: (B, P, C), through the window of `_crop_window`, so each point
+    reads the pixel densify_on_device put it in. Padded and out-of-window
+    points read pixel 0: mask them with the window rebuilt from
+    `crop_origin`. The readback is then point-cloud sized, not the dense
+    score volume."""
+    T = image_size
+    B, P, D = sparse["coords"].shape
+    shifted, in_win, _, _ = _crop_window(sparse, T)
+    flat = torch.zeros((B, P), dtype=torch.long, device=shifted.device)
+    for d in range(D):
+        flat = flat * T + torch.clamp(shifted[..., d], 0, T - 1)
+    flat = torch.where(in_win, flat, torch.zeros_like(flat))
+    C = scores.shape[-1]
+    return torch.gather(scores.reshape(B, T ** D, C), 1,
+                        flat[..., None].expand(B, P, C))

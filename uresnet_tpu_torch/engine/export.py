@@ -1,5 +1,7 @@
 """The serving function (port of uresnet_tpu/engine/export.py
-``build_serving_fn``): BN-folded forward + f32 softmax over classes.
+``build_serving_fn``): BN-folded forward + f32 softmax over classes, and the
+folded logits function it is made of, which the analysis pass
+(engine/evaluator.py) shares.
 
 The ``.uxm`` serialized-artifact analogue is not ported yet (ROADMAP.md).
 """
@@ -18,16 +20,19 @@ from uresnet_tpu_torch.models.fold import (fold_batchnorm, kernel_operands,
 from uresnet_tpu_torch.models.uresnet import UResNet
 
 
-def build_serving_fn(cfg: Config,
-                     model: UResNet) -> Callable[[torch.Tensor], torch.Tensor]:
+def build_logits_fn(cfg: Config,
+                    model: UResNet) -> Callable[[torch.Tensor], torch.Tensor]:
     """x (B, H, W, C_in) normalized charge image, on the model's device ->
-    f32 per-pixel softmax scores (B, H, W, num_class).
+    f32 logits (B, H, W, num_class) of the BN-folded forward.
 
-    Serving is canonical: ``pack`` is a TPU lane-filling training layout
-    with identical outputs. Unlike the JAX package, which forces
-    ``kernel_backend='xla'`` here because XLA beat its Pallas kernel on the
-    TPU, the configured backend is kept: that measurement does not carry
-    over to Hopper, so 'auto' runs the hand-written kernel."""
+    BN is folded and the kernel operands are made once, here: call this
+    once per pass over the data, not per batch. The fold equals the eval
+    forward (tests/test_torch_model.py). Serving is canonical: ``pack`` is a
+    TPU lane-filling training layout with identical outputs. Unlike the JAX
+    package, which forces ``kernel_backend='xla'`` here because XLA beat its
+    Pallas kernel on the TPU, the configured backend is kept: that
+    measurement does not carry over to Hopper, so 'auto' runs the
+    hand-written kernel."""
     mcfg = dataclasses.replace(cfg.model, pack=False, remat=False)
     if mcfg.compute_dtype == "float32":
         # f32 means true f32, as JAX's Precision.HIGHEST: no TF32 in cuDNN
@@ -38,8 +43,20 @@ def build_serving_fn(cfg: Config,
         folded = kernel_operands(fold_batchnorm(*trees(model), mcfg), mcfg)
 
     @torch.inference_mode()
+    def logits_fn(x: torch.Tensor) -> torch.Tensor:
+        return uresnet_apply_folded(folded, x, cfg=mcfg)
+
+    return logits_fn
+
+
+def build_serving_fn(cfg: Config,
+                     model: UResNet) -> Callable[[torch.Tensor], torch.Tensor]:
+    """x (B, H, W, C_in) normalized charge image, on the model's device ->
+    f32 per-pixel softmax scores (B, H, W, num_class)."""
+    logits_fn = build_logits_fn(cfg, model)
+
+    @torch.inference_mode()
     def serve(x: torch.Tensor) -> torch.Tensor:
-        logits = uresnet_apply_folded(folded, x, cfg=mcfg)
-        return torch.softmax(logits.float(), dim=-1)
+        return torch.softmax(logits_fn(x), dim=-1)
 
     return serve

@@ -15,8 +15,10 @@ same flips as an uninterrupted one. The JAX package keeps a threefry key in
 that leaf; a JAX checkpoint resumes here exactly in params, BN state and
 Adam, but draws its own augmentation stream.
 
-Not ported (they raise): data/spatial/model parallelism, ``val_exact``
-(the exactly-once ``evaluate_dataset``) and 3D — ROADMAP.md. The packed
+Validation samples ``val_batches`` held-out batches through ``eval_step``
+over the BN-folded forward, or with ``train.val_exact`` runs the
+exactly-once ``evaluate_dataset`` (engine/evaluator.py). Not ported (they
+raise): data/spatial/model parallelism and 3D — ROADMAP.md. The packed
 TPU layouts (``model.pack``, ``train.packed_loss``) are accepted and run
 canonical; ``steps_per_dispatch = K`` runs K plain steps per loop turn.
 """
@@ -40,6 +42,7 @@ from uresnet_tpu_torch.data.device_pipeline import (densify_on_device,
 from uresnet_tpu_torch.data.prefetch import device_prefetch
 from uresnet_tpu_torch.engine import checkpoint as ckpt
 from uresnet_tpu_torch.engine.augment import augment_batch
+from uresnet_tpu_torch.engine.export import build_logits_fn
 from uresnet_tpu_torch.engine.losses import weighted_softmax_xent
 from uresnet_tpu_torch.engine.metrics import segmentation_metrics
 from uresnet_tpu_torch.engine.optim import (AdamState, adam_init, adam_update,
@@ -70,9 +73,6 @@ class Trainer:
             if getattr(cfg.parallel, axis) > 1:
                 raise NotImplementedError(
                     f"parallel.{axis} > 1: parallelism {_NOT_PORTED}")
-        if cfg.train.val_exact:
-            raise NotImplementedError(
-                f"train.val_exact (evaluate_dataset) {_NOT_PORTED}")
         check_dims(cfg.model.dims)
         if cfg.model.kernel_backend not in KERNEL_BACKENDS:
             raise ValueError(
@@ -123,9 +123,9 @@ class Trainer:
             normalize_clip=d.normalize_clip, weight_mode=d.weight_mode,
             nonzero_boost=d.weight_nonzero_boost, decisions=decisions)
 
-    def _loss_fn(self, model: UResNet, batch: Dict, train: bool):
-        """(loss, logits, new BN state) of one batch."""
-        logits, new_state = model(batch["data"], train=train)
+    def _loss_fn(self, model: UResNet, batch: Dict):
+        """(loss, logits, new BN state) of one batch in train mode."""
+        logits, new_state = model(batch["data"], train=True)
         loss = weighted_softmax_xent(logits, batch["label"], batch["weight"],
                                      normalize=self.cfg.train.loss_normalize)
         return loss, logits, new_state
@@ -148,7 +148,7 @@ class Trainer:
         params = dict(model.named_parameters())
         trainable = [k for k, p in params.items() if p.requires_grad]
         with torch.enable_grad():
-            loss, logits, new_state = self._loss_fn(model, batch, True)
+            loss, logits, new_state = self._loss_fn(model, batch)
             grads = torch.autograd.grad(loss, [params[k] for k in trainable])
         new_params, opt = adam_update(
             dict(zip(trainable, grads)), ts.opt,
@@ -168,15 +168,6 @@ class Trainer:
         key = np.array([ts.key[0], (int(ts.key[1]) + 1) & 0xFFFFFFFF], np.uint32)
         return TrainState(model=model, opt=opt, key=key), metrics
 
-    @torch.no_grad()
-    def _eval_step(self, ts: TrainState, batch: Dict) -> Dict:
-        batch = self._prepare(batch)
-        loss, logits, _ = self._loss_fn(ts.model, batch, False)
-        metrics = segmentation_metrics(logits, batch["label"], batch["data"],
-                                       num_class=self.cfg.model.num_class)
-        metrics["loss"] = loss
-        return metrics
-
     def train_step(self, ts: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         """One step with the summary metrics. The model in ``ts`` is updated
         in place; use the returned state."""
@@ -187,8 +178,22 @@ class Trainer:
         """The hot-loop step: loss only in the metrics."""
         return self._train_step(ts, batch, with_metrics=False)
 
-    def eval_step(self, ts: TrainState, batch: Dict) -> Dict:
-        return self._eval_step(ts, batch)
+    @torch.no_grad()
+    def eval_step(self, ts: TrainState, batch: Dict, logits_fn=None) -> Dict:
+        """The eval metrics and loss of one batch over the BN-folded forward
+        (equal to the eval forward). A pass over several batches folds once
+        and passes its ``logits_fn`` (engine/export.py ``build_logits_fn``);
+        without one, the model of ``ts`` is folded here."""
+        if logits_fn is None:
+            logits_fn = build_logits_fn(self.cfg, ts.model)
+        batch = self._prepare(batch)
+        logits = logits_fn(batch["data"])
+        metrics = segmentation_metrics(logits, batch["label"], batch["data"],
+                                       num_class=self.cfg.model.num_class)
+        metrics["loss"] = weighted_softmax_xent(
+            logits, batch["label"], batch["weight"],
+            normalize=self.cfg.train.loss_normalize)
+        return metrics
 
     # -- data -----------------------------------------------------------------
 
@@ -344,14 +349,20 @@ class Trainer:
 
     def validate(self, ts: TrainState, *, num_batches: int = 8) -> Dict[str, float]:
         """In-loop validation: means of the metrics over ``num_batches``
-        sampled held-out batches."""
+        sampled held-out batches; with ``train.val_exact``, the
+        exactly-once pass over the held-out set (``evaluate_dataset``)."""
+        if self.cfg.train.val_exact:
+            from uresnet_tpu_torch.engine.evaluator import evaluate_dataset
+
+            return evaluate_dataset(self, ts)
         if self.val_loader is None:
             self.val_loader = self.make_loader(train=False)
+        logits_fn = build_logits_fn(self.cfg, ts.model)
         agg: Dict[str, float] = {}
         for _ in range(num_batches):
             batch = self.val_loader.next()
             batch.pop("cursor", None)
-            m = self.eval_step(ts, self.device_batch(batch))
+            m = self.eval_step(ts, self.device_batch(batch), logits_fn)
             for k, v in m.items():
                 agg[k] = agg.get(k, 0.0) + float(v) / num_batches
         return agg
