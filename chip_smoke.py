@@ -5,7 +5,8 @@
 
 Drives the port's serving, training and analysis paths at the flagship width of
 configs/train_2d_512.yaml (2D U-ResNet, base 16, depth 5, 2 blocks per
-level, 3 classes, bf16, 512^2, batch 32) with random seeded weights:
+level, 3 classes, bf16, 512^2, batch 32), and then of the 3D U-ResNet of
+configs/train_3d_192.yaml, with random seeded weights:
 
   1. device   — requires a CUDA device; prints the card's name and power
                 limit (nvidia-smi) and the torch / CUDA versions;
@@ -58,6 +59,22 @@ level, 3 classes, bf16, 512^2, batch 32) with random seeded weights:
                 over 128 events (readback groups 1 and 4) and the device
                 time of the ana steps and their readbacks.
 
+  9. 3d      — BASELINE config 4 (configs/train_3d_192.yaml: 3D, base 16,
+                depth 4, bf16 with the f32 head, 192^3, batch 1, remat off),
+                where no fused kernel runs (every launch count stays 0): a
+                seeded full-size model's f32 forward on the card against
+                the CPU's at 48^3; 30 steps of ``cli.train`` on 64 synthetic
+                192^3 events with one ``val_exact`` validation, the
+                checkpoint's 5-D JAX layout, f32 logits; train_step_light's
+                time, layers and peak memory at batch 1, 2 and 4 (remat
+                off) and 4 (remat block), a profile of 3 steps, the f32
+                head's cost in TF32 and true f32; from the
+                checkpoint, ``cli.infer`` on 16 events: sparse, dense and
+                host exports bit-equal, USEF, ``--metrics-only`` (16 x
+                192^3 voxels), ``--tiled`` on 4 events of 256^3 (8 tiles
+                each), bf16 vs f32 scores; the serving forward's vol/s and
+                profile, and the sparse analysis pass's events/s.
+
 Then one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 non-zero and the last line is not printed. Scratch files go under
@@ -108,6 +125,28 @@ FLAGSHIP = {
               "val_iter": 500},
 }
 
+# configs/train_3d_192.yaml (BASELINE config 4), written out the same way:
+# 3D, base 16, depth 4, 2 blocks per level, bf16 with the f32 head, 192^3,
+# batch 1, remat off. Its pack: true runs canonical here too.
+CONFIG4 = {
+    "model": {"dims": 3, "num_class": 3, "base_filters": 16, "depth": 4,
+              "compute_dtype": "bfloat16", "pack": True, "remat": False,
+              "head_dtype": "float32"},
+    "data": {"image_size": 192, "batch_size": 1, "planes": [0],
+             "weight_mode": "class_balance", "backend": "auto",
+             "max_points": 24576, "num_threads": 4},
+    "optim": {"lr": 2.0e-4, "schedule": "cosine", "decay_steps": 10000,
+              "warmup_steps": 200, "grad_clip_norm": 1.0},
+    "train": {"iterations": 10000},
+}
+VOL_TRAIN_EVENTS = 64   # phase 9's training file (and its val_exact set)
+VOL_ANA_EVENTS = 16     # phase 9's analysis file
+VOL_TILED = (4, 256)    # phase 9's tiled file: events, edge (8 tiles each)
+VOL_CHECK = 48          # edge of the card-vs-CPU check
+# phase 9's timed train steps: (batch, remat). Without remat batch 4 takes
+# 56 GiB of the H100's 80 GB; block remat brings it to 24 GiB.
+VOL_BATCHES = ((1, False), (2, False), (4, False), (4, "block"))
+
 # kernel vs plain tolerances. bf16: one bf16 ulp of the output (<= 2^-7
 # relative; both sides round the same f32 sum once) plus 1e-4 of the
 # tensor's max-abs for f32 accumulation-order differences near zero.
@@ -121,6 +160,10 @@ FWD_MAX_SOFTMAX_DIFF, FWD_MIN_AGREE = 0.05, 0.98
 # bf16 operands, relative to its max: bf16 rounding would be ~4e-3
 DW_REL = 1e-5
 KERNELS_ONLY = False  # phases 1-3 alone (--kernels-only)
+# kernel-name fragments of layout conversions (cuDNN's nchwToNhwc-style
+# transposes, torch's permute copies)
+LAYOUT_KERNELS = ("nchwtonhwc", "nhwctonchw", "transpose", "permute",
+                  "ncdhw", "ndhwc")
 # an H100 SXM's published peaks (NVIDIA data sheet, dense), for the bounds
 HBM_BYTES_PER_S, BF16_PEAK, F32_PEAK = 3.35e12, 989e12, 67e12
 
@@ -437,12 +480,14 @@ def v1_phase(fused_mod, cfg, dev):
 
 
 def profile_forwards(fns, x, path, card, reps=3, warmup=3, unit="forward",
-                     append=False):
+                     append=False, top=8):
     """torch.profiler over ``reps`` calls of each fn (``fn(x)``), after
     ``warmup``. Per call (``unit``): host wall time, device busy time (the
     union of the card's kernel and copy intervals) and its idle share of
-    that wall, peak memory, and the kernels that take the most device time.
-    The full tables go to ``path`` (appended with ``append``)."""
+    that wall, peak memory, the ``top`` kernels that take the most device
+    time, and every layout-conversion kernel (an NCHW/NHWC transpose that
+    cuDNN or torch inserts). The full tables go to ``path`` (appended with
+    ``append``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -476,8 +521,16 @@ def profile_forwards(fns, x, path, card, reps=3, warmup=3, unit="forward",
         print(f"[profile] {name}: wall {wall_ms:.3f} ms/{unit}, device busy "
               f"{busy_ms:.3f} ms/{unit}, idle share {1 - busy_ms / wall_ms:.4f}, "
               f"peak memory {peak:.3f} GiB | {card}", flush=True)
-        for kname, us in per_kernel.most_common(8):
+        for kname, us in per_kernel.most_common(top):
             print(f"[profile]   {us / 1e3 / reps:9.3f} ms/{unit}  {kname[:90]}",
+                  flush=True)
+        layout = [(k, us) for k, us in per_kernel.most_common()
+                  if any(p in k.lower() for p in LAYOUT_KERNELS)]
+        print(f"[profile]   layout-conversion kernels: "
+              f"{len(layout)} distinct, {sum(us for _, us in layout) / 1e3 / reps:.3f} "
+              f"ms/{unit}", flush=True)
+        for kname, us in layout[:6]:
+            print(f"[profile]     {us / 1e3 / reps:9.3f} ms/{unit}  {kname[:110]}",
                   flush=True)
         tables += [f"== {name}: wall {wall_ms:.3f} ms/{unit}, device busy "
                    f"{busy_ms:.3f} ms/{unit}, peak memory {peak:.3f} GiB",
@@ -693,10 +746,10 @@ def train_phase(cfg_path, cfg, fused_mod, card, dev):
     return t_step, peak
 
 
-def layer_times(tr, ts, batch, card, reps=5):
+def layer_times(tr, ts, batch, card, reps=5, tag="train"):
     """The train step's layers timed apart with CUDA events (median of
     ``reps`` after one warm-up): densify, forward, loss, backward,
-    optimizer. The update is computed and dropped."""
+    optimizer. The update is computed and dropped. Returns the medians."""
     from uresnet_tpu_torch.engine.losses import weighted_softmax_xent
     from uresnet_tpu_torch.engine.optim import adam_update
 
@@ -722,9 +775,11 @@ def layer_times(tr, ts, batch, card, reps=5):
         ev[5].synchronize()
         rows.append([a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
     med = np.median(np.array(rows[1:]), axis=0)
-    print("[train]   layers, ms/step (median of %d): %s; sum %.2f | %s" % (
-        reps, ", ".join(f"{n} {t:.2f}" for n, t in zip(names, med)),
-        med.sum(), card), flush=True)
+    print("[%s]%slayers, ms/step (median of %d): %s; sum %.2f | %s" % (
+        tag, " " * (8 - len(tag)), reps,
+        ", ".join(f"{n} {t:.2f}" for n, t in zip(names, med)), med.sum(),
+        card), flush=True)
+    return dict(zip(names, med))
 
 
 def dw_phase(dev):
@@ -995,6 +1050,377 @@ def ana_phase(cfg_path, cfg, ckpt, events, fused_mod, card, dev):
               flush=True)
 
 
+def vol_card_vs_cpu(cfg, card, dev):
+    """Phase 9a: a seeded config-4 model of full width and depth, f32 (TF32
+    off), carried to the card: its eval forward and its BN-folded serving
+    forward there equal the CPU's within 1e-4 of the max at VOL_CHECK^3,
+    batch 1. Also whether F.pad keeps a channels_last_3d tensor
+    channels-last on the card (the stride-2 convs' asymmetric pad)."""
+    import torch.nn.functional as F
+
+    from uresnet_tpu_torch.engine.export import build_logits_fn
+    from uresnet_tpu_torch.models.convert import jax_params, load_jax_params
+    from uresnet_tpu_torch.models.uresnet import UResNet
+
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="float32"))
+    g = torch.Generator().manual_seed(SEED + 9)
+    cpu_model = UResNet(cfg32.model, generator=g)
+    randomize_bn(cpu_model, g)
+    card_model = UResNet(cfg32.model, generator=torch.Generator(), device=dev)
+    load_jax_params(card_model, *jax_params(cpu_model))
+    S = VOL_CHECK
+    x = torch.rand(1, S, S, S, 1, generator=g)
+    x = x * (x > 0.9)
+    worst = {}
+    with torch.no_grad():
+        for name, fn in (("eval forward", lambda m, v: m(v)[0]),
+                         ("folded forward", lambda m, v: build_logits_fn(
+                             cfg32, m)(v))):
+            want = fn(cpu_model, x)
+            got = fn(card_model, x.to(dev)).cpu()
+            err = (got - want).abs().max().item() / want.abs().max().item()
+            if not err <= 1e-4:
+                raise AssertionError(f"3D {name}: card vs CPU {err:.3e} of "
+                                     f"the max (limit 1e-4)")
+            worst[name] = err
+    E = cfg.data.image_size  # a level-0 activation: 16 channels at E^3
+    xl = torch.zeros(1, E, E, E, cfg.model.base_filters, dtype=torch.bfloat16,
+                     device=dev).permute(0, 4, 1, 2, 3)  # as ops/conv.py views it
+    kept = F.pad(xl, (0, 1, 0, 1, 0, 1)).is_contiguous(
+        memory_format=torch.channels_last_3d)
+    del xl
+    if not kept:
+        raise AssertionError("F.pad made a channels_last_3d tensor "
+                             "channels-first: every stride-2 conv copies")
+    print(f"[3d]      card vs CPU, f32 (TF32 off), full width and depth, "
+          f"{S}^3 batch 1: eval forward {worst['eval forward']:.3e}, folded "
+          f"forward {worst['folded forward']:.3e} of the max (limit 1e-4); "
+          f"F.pad keeps channels_last_3d on the card", flush=True)
+
+
+def vol_train(cfg_path, fused_mod, card, dev):
+    """Phase 9b: cli.train at 192^3 (30 steps, one val_exact validation)
+    and the checkpoint's 5-D JAX layout. Returns the checkpoint's path and
+    the run's overrides."""
+    from uresnet_tpu_torch import generate_file, load_config
+    from uresnet_tpu_torch.cli import train
+    from uresnet_tpu_torch.engine.trainer import Trainer
+    from uresnet_tpu_torch.models.convert import flatten_tree, jax_train_state
+
+    cfg = load_config(cfg_path)
+    S, n = cfg.data.image_size, VOL_TRAIN_EVENTS
+    t0 = time.time()
+    train_file = generate_file(os.path.join(WORK, "vol_train.usef"), n,
+                               seed=SEED + 11, shape=(S,) * 3, planes=(0,))
+    ckpt_dir = os.path.join(WORK, "vol_ckpt")
+    log_dir = os.path.join(WORK, "vol_log")
+    overrides = [f"data.input_files={train_file}", "data.synthetic=false",
+                 "train.summary_iter=10", "train.checkpoint_iter=0",
+                 f"train.val_iter={TRAIN_STEPS}", "train.val_exact=true",
+                 f"train.checkpoint_dir={ckpt_dir}", f"train.log_dir={log_dir}"]
+    _, counts, _ = counted(fused_mod, lambda: run_cli(
+        train, [cfg_path, *overrides, "--iterations", str(TRAIN_STEPS),
+                "--device", DEVICE], tag="3d"))
+    wall = time.time() - t0
+    expect_launches(counts, 1, per_batch=0)
+    with open(os.path.join(log_dir, "train_metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(log_dir, "val_metrics.jsonl")) as f:
+        val = [json.loads(line) for line in f]
+    if [r["step"] for r in rows] != list(range(10, TRAIN_STEPS + 1, 10)):
+        raise AssertionError(f"logged steps {[r['step'] for r in rows]}")
+    if not all(np.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"non-finite loss: {[r['loss'] for r in rows]}")
+    if ([v["step"] for v in val] != [TRAIN_STEPS] or val[0]["n_events"] != n
+            or val[0]["n_pixels"] != n * S ** 3
+            or not np.isfinite(val[0]["loss"])):
+        raise AssertionError(f"val_exact validation {val}")
+    ckpt = os.path.join(ckpt_dir, f"step_{TRAIN_STEPS:08d}.npz")
+    tcfg = load_config(cfg_path, overrides)
+    tr = Trainer(tcfg, device=dev)
+    ts, step, _ = tr.restore(ckpt)
+    want = {"train_state/" + k.replace(".", "/") for k in flatten_tree(
+        jax_train_state(ts.model, ts.opt, ts.key))} | {"meta/step",
+                                                       "meta/data_cursor"}
+    with np.load(ckpt) as z:
+        keys = set(z.files)
+        stem = z["train_state/params/stem/conv/w"].shape
+        mid = z["train_state/params/mid_b0/cb1/conv/w"].shape
+    fb = cfg.model.base_filters * 2 ** cfg.model.depth
+    if (keys != want or step != TRAIN_STEPS
+            or stem != (3, 3, 3, 1, cfg.model.base_filters)
+            or mid != (3, 3, 3, fb, fb)):
+        raise AssertionError(f"3D checkpoint {ckpt}: step {step}, stem {stem}, "
+                             f"mid {mid}; keys missing {sorted(want - keys)[:5]}, "
+                             f"extra {sorted(keys - want)[:5]}")
+    val_s = val[0]["wall_s"] - rows[-1]["wall_s"]
+    print(f"[3d]      {TRAIN_STEPS} config-4 steps at {S}^3 batch 1 through "
+          f"cli.train in {wall - val_s:.2f} s wall (incl. data generation, "
+          f"loader start, first-step setup; without the val_exact validation, "
+          f"{val_s:.2f} s by the logs' wall_s); losses "
+          f"{[round(r['loss'], 4) for r in rows]} finite; val_exact over {n} "
+          f"events: n_pixels {val[0]['n_pixels']:.0f}, miou "
+          f"{val[0]['miou']:.6f}; checkpoint holds {len(keys)} leaves of the "
+          f"JAX layout, 5-D kernels (stem {stem}, mid {mid}); fused launches "
+          f"{counts} | {card}", flush=True)
+    return ckpt, overrides
+
+
+def vol_step(cfg_path, ckpt, overrides, B, remat, card, dev):
+    """Phase 9c at one (batch, remat): train_step_light from the phase's
+    checkpoint, timed by CUDA events (median of 5), its peak memory and its
+    layers; at batch 1 also the train forward's logits (f32, the f32
+    head's) and a profile of 3 steps."""
+    from uresnet_tpu_torch import load_config
+    from uresnet_tpu_torch.engine.trainer import Trainer
+
+    bcfg = load_config(cfg_path, overrides + [f"data.batch_size={B}",
+                                              f"model.remat={remat}"])
+    S = bcfg.data.image_size
+    btr = Trainer(bcfg, device=dev)
+    state = [btr.restore(ckpt)[0]]
+    loader = btr.make_loader(train=True)
+    loader.start()
+    try:
+        host = loader.next()
+    finally:
+        loader.stop()
+        if hasattr(loader, "close"):
+            loader.close()
+    host.pop("cursor", None)
+    batch = btr.device_batch(host)
+    if B == 1:
+        with torch.no_grad():
+            logits, _ = state[0].model(btr._prepare(batch)["data"], train=True)
+        if (logits.dtype != torch.float32
+                or torch.equal(logits, logits.bfloat16().float())):
+            raise AssertionError(f"train logits {logits.dtype}, not the f32 "
+                                 f"head's")
+        del logits
+
+    def step(_=None):
+        state[0], m = btr.train_step_light(state[0], batch)
+        return m
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_step = time_ms(step, reps=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = float(step()["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"non-finite loss {loss} at batch {B}")
+    print(f"[3d]      B={B} remat={remat} {S}^3 bf16 train_step_light (sparse "
+          f"batch, densify on device): {t_step:.2f} ms/step = "
+          f"{B / t_step * 1e3:.3f} vol/s, peak memory {peak:.3f} GiB | {card}",
+          flush=True)
+    layer_times(btr, state[0], batch, card, reps=3, tag="3d")
+    if B == 1:
+        profile_forwards({"3d train step": step}, None,
+                         os.path.join(WORK, "profile.txt"), card, unit="step",
+                         append=True, top=12)
+    del state, batch, btr
+    torch.cuda.empty_cache()
+    return t_step, peak
+
+
+def vol_ana(cfg_path, ckpt, fused_mod, card, dev):
+    """Phase 9d-e: serving and every analysis mode from the 3D checkpoint
+    through cli.infer, each with 0 fused launches; then the serving forward
+    and the streamed sparse pass timed."""
+    from uresnet_tpu_torch import generate_file, load_config
+    from uresnet_tpu_torch.cli import infer
+    from uresnet_tpu_torch.data import events as ev
+    from uresnet_tpu_torch.data.loader import make_batch_loader
+    from uresnet_tpu_torch.engine import evaluator
+    from uresnet_tpu_torch.engine import metrics as tmetrics
+    from uresnet_tpu_torch.engine.export import (build_logits_fn,
+                                                 build_serving_fn)
+
+    cfg = load_config(cfg_path)
+    S, C, n = cfg.data.image_size, cfg.model.num_class, VOL_ANA_EVENTS
+    events = generate_file(os.path.join(WORK, "vol_ana.usef"), n,
+                           seed=SEED + 12, shape=(S,) * 3, planes=(0,))
+    argv = [cfg_path, "--checkpoint", ckpt, "--input", events, "--device", DEVICE]
+    out = {m: os.path.join(WORK, f"vol_{m}.npz")
+           for m in ("sparse", "dense", "host", "f32")}
+    z, st, cnt = {}, {}, {}
+    for mode, extra in (("sparse", []), ("dense", ["--export", "dense"]),
+                        ("f32", ["model.compute_dtype=float32"])):
+        z[mode], st[mode], cnt[mode], _ = serve_counted(
+            fused_mod, infer, argv + extra, out[mode], n, C, "tensor_core",
+            per_batch=0, batch_events=1)
+    tr, ts = ana_state(cfg_path, ckpt, dev)
+    st["host"], cnt["host"], _ = counted(fused_mod, lambda: evaluator.run_inference(
+        tr, ts, events, out["host"], streamed=False))
+    expect_launches(cnt["host"], n, per_batch=0)
+    z["host"] = check_export(out["host"], st["host"], n, C)
+    usef = os.path.join(WORK, "vol_scores.usef")
+    _, cnt["usef"], _ = counted(fused_mod, lambda: run_cli(
+        infer, argv + ["--format", "usef", "--output", usef], tag="3d"))
+    expect_launches(cnt["usef"], n, per_batch=0)
+    for m in ("dense", "host"):
+        identical(z[m], z["sparse"], f"3D {m} vs sparse export")
+    if z["sparse"]["coords"].shape[1] != 3:
+        raise AssertionError(f"3D export coords {z['sparse']['coords'].shape}")
+    hits = check_usef(usef, events, z["sparse"], cfg)
+    d, agree = agreement(z["f32"], z["sparse"], "3D f32 vs bf16 forward")
+    print(f"[3d]      {n} events of {S}^3: sparse, dense, host exports of "
+          f"{len(z['sparse']['scores'])} charge voxels bit-equal in every "
+          f"column; usef writeback holds the npz scores at all {hits} voxels; "
+          f"compute_dtype float32 vs bf16: max softmax diff {d:.3e} (tol "
+          f"{FWD_MAX_SOFTMAX_DIFF}), argmax agreement {agree:.5f} (min "
+          f"{FWD_MIN_AGREE}); fused launches "
+          f"{ {m: sum(c.values()) for m, c in cnt.items()} }", flush=True)
+
+    m, counts, _ = counted(fused_mod, lambda: run_cli(
+        infer, argv + ["--metrics-only"], tag="3d"))
+    expect_launches(counts, n, per_batch=0)
+    if (m["n_events"] != n or m["n_pixels"] != n * S ** 3
+            or abs(m["miou"] - st["sparse"]["miou"]) > 1e-9):
+        raise AssertionError(f"3D --metrics-only {m} vs the sparse pass's "
+                             f"miou {st['sparse']['miou']}")
+    print(f"[3d]      --metrics-only: n_events {m['n_events']:.0f}, n_pixels "
+          f"{m['n_pixels']:.0f} (= {n} x {S}^3), miou {m['miou']!r} (sparse "
+          f"pass {st['sparse']['miou']!r}); launches {counts}", flush=True)
+
+    nt, edge = VOL_TILED
+    big = generate_file(os.path.join(WORK, "vol_tiled_in.usef"), nt,
+                        seed=SEED + 13, shape=(edge,) * 3, planes=(0,))
+    tiled = os.path.join(WORK, "vol_tiled.usef")
+    mt, counts, wall = counted(fused_mod, lambda: run_cli(
+        infer, [cfg_path, "--checkpoint", ckpt, "--input", big, "--tiled",
+                "--format", "usef", "--output", tiled, "--device", DEVICE],
+        tag="3d"))
+    expect_launches(counts, 1, per_batch=0)
+    per_event = (-(-edge // S)) ** 3
+    n_pts = n_scored = 0
+    for eo, ei in zip(ev.read_events(tiled), ev.read_events(big)):
+        by_id = {p.plane_id: p for p in eo.planes}
+        pin = ei.planes[0]
+        sc = np.stack([by_id[c].values for c in range(C)], 1)
+        if (not np.array_equal(by_id[0].coords, pin.coords)
+                or not np.isfinite(sc).all()):
+            raise AssertionError("3D tiled: a point is missing or not scored")
+        n_pts += len(pin.values)
+        n_scored += len(sc)
+    if n_scored != n_pts or n_pts == 0 or mt["n_tiles"] != nt * per_event:
+        raise AssertionError(f"3D tiled: {n_scored} of {n_pts} points scored, "
+                             f"{mt['n_tiles']} tiles")
+    print(f"[3d]      --tiled: {nt} events of {edge}^3, {int(mt['n_tiles'])} "
+          f"clamped tiles ({per_event} each), all {n_pts} charge points "
+          f"scored (finite, file order); launches {counts}; {wall:.2f} s wall",
+          flush=True)
+
+    # 9e. the serving forward, the sparse ana step and pass
+    serve = build_serving_fn(tr.cfg, ts.model)
+    x = torch.rand(1, S, S, S, 1, generator=torch.Generator().manual_seed(SEED))
+    x = (x * (x > 0.999)).to(dev)  # ~0.1% charge voxels, as the events
+    t_fwd = time_ms(lambda: serve(x), reps=7)
+    print(f"[3d]      B=1 {S}^3 bf16 serving forward+softmax (BN folded, f32 "
+          f"head): {t_fwd:.2f} ms = {1e3 / t_fwd:.3f} vol/s (CUDA events, "
+          f"median of 7) | {card}", flush=True)
+    profile_forwards({"3d serving": serve}, x, os.path.join(WORK, "profile.txt"),
+                     card, append=True, top=12)
+    dcfg = dataclasses.replace(
+        cfg.data, input_files=(events,), synthetic=False, random_access=False,
+        weight_mode="ones", transfer="sparse",
+        max_points=max(cfg.data.max_points,
+                       -(-ev.max_plane_points(events, (0,)) // 256) * 256))
+    loader = make_batch_loader(dcfg, num_class=C, train=False, ndims=3)
+    try:
+        host = loader.next()
+    finally:
+        loader.stop()
+        if hasattr(loader, "close"):
+            loader.close()
+    host.pop("cursor", None)
+    batch = tr.device_batch(host)
+    logits_fn = build_logits_fn(tr.cfg, ts.model)
+    sparse = dict(batch, row_valid=torch.ones(1, device=dev))
+    t_step = time_ms(lambda: evaluator._ana_step_sparse(tr.cfg, logits_fn,
+                                                        sparse), reps=7)
+    dense = evaluator._densify_ones(tr.cfg, batch)
+    logits = logits_fn(dense["data"])
+    t_counts = time_ms(lambda: tmetrics.segmentation_counts(
+        logits, dense["label"], dense["data"], num_class=C), reps=7)
+
+    def scatter_counts():  # the scatter_add_ form, for the record
+        pred = torch.argmax(logits, dim=-1)
+        idx = (pred * C + dense["label"]).reshape(1, -1)
+        conf = torch.zeros(1, C * C, device=dev)
+        conf.scatter_add_(1, idx, torch.ones(idx.shape, device=dev))
+        return conf
+
+    t_scatter = time_ms(scatter_counts, reps=7)
+    walls = []
+    o = os.path.join(WORK, "vol_timed.npz")
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluator.run_inference(tr, ts, events, o)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"[3d]      device per volume (median of 7): sparse ana step "
+          f"{t_step:.3f} ms (densify, forward, softmax, gather, counts); "
+          f"segmentation_counts {t_counts:.3f} ms (its scatter_add_ form "
+          f"{t_scatter:.3f} ms) | {card}", flush=True)
+    for wall in walls:
+        print(f"[3d]      streamed sparse analysis: {n} volumes in {wall:.3f} s "
+              f"= {n / wall:.3f} events/s; device steps {n * t_step:.1f} ms "
+              f"(share {n * t_step / (wall * 1e3):.3f}) | {card}", flush=True)
+
+
+def vol_head(cfg, card, dev):
+    """Phase 9c: the config-4 head (16 -> 3 channels at 192^3, bf16-rounded
+    operands in f32) forward + weight gradient as the port runs it (TF32
+    allowed, ops/conv.py ``_ConvTF32``) and in true f32, where stock
+    autograd with the global flag off would take it."""
+    from uresnet_tpu_torch.ops.conv import conv
+
+    S, C = cfg.data.image_size, cfg.model.base_filters
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    h = torch.randn(1, S, S, S, C, generator=g, device=dev).bfloat16()
+    w = (torch.randn(3, 3, 3, C, cfg.model.num_class, generator=g, device=dev)
+         * 0.1).requires_grad_()
+    port = conv(h, {"w": w}, dims=3, compute_dtype=torch.float32,
+                precision=torch.bfloat16)
+    gy = torch.randn_like(port)
+    wr = w.detach().bfloat16().float().requires_grad_()
+    t_port = time_ms(lambda: torch.autograd.grad(conv(
+        h, {"w": w}, dims=3, compute_dtype=torch.float32,
+        precision=torch.bfloat16), [w], gy))
+    prev, torch.backends.cudnn.allow_tf32 = torch.backends.cudnn.allow_tf32, False
+    try:
+        t_f32 = time_ms(lambda: torch.autograd.grad(conv(
+            h.float(), {"w": wr}, dims=3, compute_dtype=torch.float32), [wr],
+            gy))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    print(f"[3d]      head {C}->{cfg.model.num_class} at {S}^3, forward + "
+          f"weight gradient: {t_port:.3f} ms in TF32 (the port's), {t_f32:.3f} "
+          f"ms in true f32 | {card}", flush=True)
+
+
+def vol_phase(fused_mod, card, dev):
+    """Phase 9: BASELINE config 4 (the 3D U-ResNet at 192^3) — card vs CPU,
+    training, train step times and memory, serving and analysis."""
+    t0 = time.time()
+    from uresnet_tpu_torch import load_config
+
+    cfg_path = os.path.join(WORK, "config4.json")
+    with open(cfg_path, "w") as f:
+        json.dump(CONFIG4, f)
+    vol_card_vs_cpu(load_config(cfg_path), card, dev)
+    ckpt, overrides = vol_train(cfg_path, fused_mod, card, dev)
+    for B, remat in VOL_BATCHES:
+        vol_step(cfg_path, ckpt, overrides, B, remat, card, dev)
+    vol_head(load_config(cfg_path), card, dev)
+    vol_ana(cfg_path, ckpt, fused_mod, card, dev)
+    print(f"[3d]      phase 9 wall {time.time() - t0:.1f} s | {card}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch")
@@ -1111,6 +1537,9 @@ def main():
 
     # 8. the analysis surface on phase 4's checkpoint and events
     ana_phase(cfg_path, cfg, ckpt, events, fused_mod, card, dev)
+
+    # 9. BASELINE config 4: the 3D U-ResNet at 192^3, no fused launch
+    vol_phase(fused_mod, card, dev)
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "uresnet_tpu")
                     or m.startswith(("jax.", "jaxlib", "uresnet_tpu.")))

@@ -229,8 +229,7 @@ def test_freeze_prunes_and_keeps(jax_run):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("parallel.data", 2), ("parallel.spatial", 2), ("parallel.model", 2),
-    ("model.dims", 3)])
+    ("parallel.data", 2), ("parallel.spatial", 2), ("parallel.model", 2)])
 def test_refuses_unported(tmp_path, field, value):
     cfg = tiny_cfg(tmp_path)
     section, name = field.split(".")

@@ -19,7 +19,7 @@ Ported so far:
   whose 3x3 residual-block convs run through a hand-written CUDA kernel
   (``csrc/conv2d.cu``, ``ops/cuda/conv2d.py``, bound to both Pallas entry
   points);
-* the 2D training path (``cli/train.py`` -> ``engine/trainer.py``):
+* the training path (``cli/train.py`` -> ``engine/trainer.py``):
   sparse batches staged by ``data/prefetch.py`` and densified on the device
   (``data/device_pipeline.py``, ``engine/augment.py``), the train-mode
   forward with TF1 BatchNorm and activation checkpointing
@@ -27,7 +27,10 @@ Ported so far:
   bf16 convs (``ops/conv.py``), the weighted cross-entropy and metrics
   (``engine/losses.py``, ``engine/metrics.py``), Adam/RMSProp
   (``engine/optim.py``), and checkpoints of the whole train state in the
-  JAX layout (``engine/checkpoint.py``, ``models/convert.py``).
+  JAX layout (``engine/checkpoint.py``, ``models/convert.py``);
+* 3D models (``model.dims: 3``, BASELINE config 4) on both paths: every
+  conv op is N-D (``ops/conv.py``); no hand kernel runs in 3D, the fused
+  conv being 2D only.
 """
 
 __version__ = "0.1.0"

@@ -22,8 +22,9 @@ from uresnet_tpu_torch.models.uresnet import UResNet
 
 def build_logits_fn(cfg: Config,
                     model: UResNet) -> Callable[[torch.Tensor], torch.Tensor]:
-    """x (B, H, W, C_in) normalized charge image, on the model's device ->
-    f32 logits (B, H, W, num_class) of the BN-folded forward.
+    """x (B, *S, C_in) normalized charge image or volume (S = (H, W) or
+    (D, H, W)), on the model's device -> f32 logits (B, *S, num_class) of
+    the BN-folded forward.
 
     BN is folded and the kernel operands are made once, here: call this
     once per pass over the data, not per batch. The fold equals the eval
@@ -51,8 +52,8 @@ def build_logits_fn(cfg: Config,
 
 def build_serving_fn(cfg: Config,
                      model: UResNet) -> Callable[[torch.Tensor], torch.Tensor]:
-    """x (B, H, W, C_in) normalized charge image, on the model's device ->
-    f32 per-pixel softmax scores (B, H, W, num_class)."""
+    """x (B, *S, C_in) normalized charge image or volume, on the model's
+    device -> f32 per-pixel softmax scores (B, *S, num_class)."""
     logits_fn = build_logits_fn(cfg, model)
 
     @torch.inference_mode()

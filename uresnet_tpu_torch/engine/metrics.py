@@ -50,7 +50,12 @@ def segmentation_counts(logits: torch.Tensor, labels: torch.Tensor,
     """Sum form of `segmentation_metrics` for dataset evaluation: per-row
     (pred, true) confusion counts (B, C, C), the pixel count, and per-row
     nonzero-pixel counts; ``row_valid`` (B,) masks padded rows. Per-row
-    f32 sums stay exact integers; `reduce_counts` adds rows in float64."""
+    f32 sums stay exact integers; `reduce_counts` adds rows in float64.
+
+    The confusion counts take one compare-and-sum pass per (pred, true)
+    bin: a ``scatter_add_`` into C*C bins per row serializes its atomics on
+    the card, ten times slower than this form in the 3D ana step at 192^3
+    on the H100 (chip_smoke.py phase 9 times both; PERF.md, PR 5)."""
     pred = torch.argmax(logits, dim=-1)
     labels = labels.to(pred.dtype)
     B = pred.shape[0]
@@ -58,9 +63,9 @@ def segmentation_counts(logits: torch.Tensor, labels: torch.Tensor,
     valid = (torch.ones(B, device=pred.device) if row_valid is None
              else row_valid.float())
     vpix = valid.reshape((B,) + (1,) * len(spatial))
-    conf = torch.zeros(B, num_class * num_class, device=pred.device)
     idx = (pred * num_class + labels).reshape(B, -1)
-    conf.scatter_add_(1, idx, vpix.expand_as(pred).reshape(B, -1).contiguous())
+    conf = torch.stack([(idx == k).sum(1) for k in range(num_class ** 2)],
+                       1).float() * valid[:, None]
     nonzero = (data.abs().sum(-1) > 0).float() * vpix
     correct = (pred == labels).float()
     pix_per_row = int(np.prod(pred.shape[1:]))

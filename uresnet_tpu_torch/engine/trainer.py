@@ -17,10 +17,11 @@ Adam, but draws its own augmentation stream.
 
 Validation samples ``val_batches`` held-out batches through ``eval_step``
 over the BN-folded forward, or with ``train.val_exact`` runs the
-exactly-once ``evaluate_dataset`` (engine/evaluator.py). Not ported (they
-raise): data/spatial/model parallelism and 3D — ROADMAP.md. The packed
-TPU layouts (``model.pack``, ``train.packed_loss``) are accepted and run
-canonical; ``steps_per_dispatch = K`` runs K plain steps per loop turn.
+exactly-once ``evaluate_dataset`` (engine/evaluator.py). 2D and 3D
+(``model.dims``) train alike. Not ported (they raise): data/spatial/model
+parallelism — ROADMAP.md. The packed TPU layouts (``model.pack``,
+``train.packed_loss``) are accepted and run canonical;
+``steps_per_dispatch = K`` runs K plain steps per loop turn.
 """
 
 from __future__ import annotations
@@ -51,7 +52,6 @@ from uresnet_tpu_torch.models.convert import (flatten_tree, jax_train_state,
                                               load_jax_train_state)
 from uresnet_tpu_torch.models.fold import KERNEL_BACKENDS
 from uresnet_tpu_torch.models.uresnet import UResNet
-from uresnet_tpu_torch.ops.conv import check_dims
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md, modules to port)"
 
@@ -73,7 +73,9 @@ class Trainer:
             if getattr(cfg.parallel, axis) > 1:
                 raise NotImplementedError(
                     f"parallel.{axis} > 1: parallelism {_NOT_PORTED}")
-        check_dims(cfg.model.dims)
+        # The JAX trainer's warning for 3D without model.pack is not ported:
+        # it is about an XLA tile-padding blowup on the TPU, and the port
+        # runs every layout canonical.
         if cfg.model.kernel_backend not in KERNEL_BACKENDS:
             raise ValueError(
                 f"model.kernel_backend must be one of {KERNEL_BACKENDS}, got "

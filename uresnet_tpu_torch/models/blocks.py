@@ -48,7 +48,7 @@ class BlockCtx:
 
 
 class Conv(nn.Module):
-    """Kernel ``w`` (kH, kW, C_in, C_out) and optional bias ``b``."""
+    """Kernel ``w`` (*k, C_in, C_out), 2D or 3D, and optional bias ``b``."""
 
     def __init__(self, kernel: int, in_ch: int, out_ch: int, *,
                  generator: torch.Generator, dims: int, use_bias: bool,

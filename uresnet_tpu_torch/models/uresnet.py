@@ -1,6 +1,7 @@
-"""U-ResNet (port of uresnet_tpu/models/uresnet.py), train and eval forward.
+"""U-ResNet (port of uresnet_tpu/models/uresnet.py), train and eval forward,
+2D and 3D (``cfg.dims``).
 
-    input (B, H, W, C_in)
+    input (B, *S, C_in)   S = (H, W) or (D, H, W)
     stem: conv3(base_f) - BN - ReLU
     for level l in 0..depth-1:
         resblock x blocks_per_level @ f = base_f * 2^l
@@ -33,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from uresnet_tpu_torch.config import ModelConfig
 from uresnet_tpu_torch.models.blocks import BlockCtx, Conv, ConvBN, ResBlock
-from uresnet_tpu_torch.ops.conv import check_dims, conv, head_precision
+from uresnet_tpu_torch.ops.conv import conv, head_precision
 from uresnet_tpu_torch.utils.dtypes import canonical_dtype
 
 
@@ -53,14 +54,13 @@ def remat_wrappers(remat):
 
 
 class UResNet(nn.Module):
-    """Weights in the JAX layout (HWIO kernels) as parameters, BN running
-    stats as buffers. ``forward(x, train)``: (B, H, W, C_in) ->
-    (float32 logits (B, H, W, num_class), new BN-state tree)."""
+    """Weights in the JAX layout (HWIO / DHWIO kernels) as parameters, BN
+    running stats as buffers. ``forward(x, train)``: (B, *S, C_in) ->
+    (float32 logits (B, *S, num_class), new BN-state tree)."""
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
                  device: Optional[torch.device] = None):
         super().__init__()
-        check_dims(cfg.dims)
         self.cfg = cfg
         kw = dict(generator=generator, dims=cfg.dims,
                   param_dtype=canonical_dtype(cfg.param_dtype), device=device)

@@ -1,18 +1,23 @@
-"""2D convolution primitives, channels-last (B, H, W, C) at the interface.
+"""N-D convolution primitives, channels-last (B, *S, C) at the interface:
+2D (B, H, W, C) and 3D (B, D, H, W, C).
 
 Port of uresnet_tpu/ops/conv.py. Kernels keep the JAX layout
-(kH, kW, C_in, C_out) so one checkpoint loads in either package. Inside,
-activations are viewed as NCHW with channels-last strides, the layout
-cuDNN runs natively, so the permutes at the boundary copy nothing.
+(*k, C_in, C_out) — HWIO, DHWIO — so one checkpoint loads in either
+package. Inside, activations are viewed as (B, C, *S) with channels-last
+strides (``channels_last`` / ``channels_last_3d``), the layout cuDNN runs
+natively, so the permutes at the boundary copy nothing.
 
 SAME padding follows XLA, not torch's symmetric ``padding=``:
 
-  * stride s pads each dimension by max((ceil(S/s)-1)*s + k - S, 0) split
-    (floor, ceil) — (0, 1) for k=3, s=2 on even sizes;
+  * stride s pads each spatial axis by max((ceil(S/s)-1)*s + k - S, 0)
+    split (floor, ceil) — (0, 1) for k=3, s=2 on even sizes. cuDNN's
+    ``padding=`` is symmetric, so an asymmetric pad is an ``F.pad`` (which
+    keeps the channels-last strides) and cuDNN pads 0;
   * ``lax.conv_transpose`` SAME at stride 2 equals zero-stuffing the input
     by 2, padding (2, 1) and correlating with the UNFLIPPED kernel. That is
-    ``conv_transpose2d`` with the spatially flipped kernel, cropped to the
-    first 2H x 2W — not ``ConvTranspose2d(padding=1, output_padding=1)``.
+    the transposed conv with the spatially flipped kernel, cropped to the
+    first 2S on every axis — not ``ConvTranspose(padding=1,
+    output_padding=1)``.
 
 bf16 convs go through `conv_general`'s autograd function: forward and data
 gradient exactly as stock autograd (bf16 in, bf16 out), but the weight
@@ -22,6 +27,10 @@ tensor that is never rounded to bf16. Stock autograd of
 upcast it. Every bf16 value is exact in TF32, so on the card the dw conv
 runs with TF32 allowed: exact products, f32 sums — the numerics of the
 TPU's DEFAULT pass.
+
+The raised head (`head_precision`) convolves f32 tensors that hold
+bf16-rounded operands; it runs with TF32 allowed in its forward and both
+gradients (`_ConvTF32`), whatever the global flag says.
 
 Float32 means true float32: callers turn TF32 off for cuDNN and matmul
 (engine/export.py build_serving_fn, engine/trainer.py), as JAX runs f32 at
@@ -38,11 +47,15 @@ import torch
 import torch.nn.functional as F
 
 
-def check_dims(dims: int) -> None:
-    if dims != 2:
-        raise NotImplementedError(
-            f"dims={dims}: the port runs 2D models only so far "
-            "(ROADMAP.md, modules to port: 3D)")
+def spatial_dims(x: torch.Tensor, dims: Optional[int] = None) -> int:
+    """The number of spatial axes of a (B, *S, C) tensor: 2 or 3, as the
+    JAX package's ``_dim_numbers``; other counts, or a ``dims`` that does not
+    match the tensor, raise ValueError."""
+    n = x.dim() - 2
+    if n not in (2, 3) or (dims is not None and dims != n):
+        raise ValueError(f"dims must be 2 or 3 and match the input, got "
+                         f"dims={dims} for a {x.dim()}-d input")
+    return n
 
 
 def conv_init(generator: torch.Generator, kernel: int, in_ch: int,
@@ -53,7 +66,6 @@ def conv_init(generator: torch.Generator, kernel: int, in_ch: int,
 
     Drawn on the CPU from ``generator`` and then moved, so a seed gives the
     same weights on every device."""
-    check_dims(dims)
     shape = (kernel,) * dims + (in_ch, out_ch)
     fan_in = in_ch * kernel ** dims
     fan_out = out_ch * kernel ** dims
@@ -70,7 +82,15 @@ def head_precision(head_dtype: torch.dtype,
     """Operand rounding for a logits conv whose dtype is RAISED above the
     model's compute dtype (model.head_dtype): the operands are rounded to
     ``compute_dtype`` — the same products as the stock head — and summed
-    into an unrounded ``head_dtype`` output. Same-dtype heads: None."""
+    into an unrounded ``head_dtype`` output. Same-dtype heads: None.
+
+    This is the TPU's DEFAULT pass. The JAX package on the CPU runs DEFAULT
+    as true f32 and does not round the head weight, so the two differ there
+    by the bf16 rounding of the head kernel (tests/test_torch_3d_model.py
+    pins it). On the card the head conv runs in TF32 (`_ConvTF32`): exact
+    on these bf16-rounded operands (TF32 keeps 10 mantissa bits, bf16 7),
+    with f32 sums. Its gradients round the f32 incoming gradient to TF32,
+    where the TPU's DEFAULT pass rounds it to bf16."""
     return compute_dtype if head_dtype != compute_dtype else None
 
 
@@ -94,14 +114,20 @@ def _tf32_convs():
         torch.backends.cudnn.allow_tf32 = prev
 
 
+def _conf(x, stride, padding, transposed):
+    """``aten.convolution``'s arguments after the weight, for ``x``'s
+    spatial axes."""
+    n = x.dim() - 2
+    return (None, [stride] * n, list(padding), [1] * n, transposed, [0] * n, 1)
+
+
 class _ConvF32WGrad(torch.autograd.Function):
     """``aten.convolution(x, w32.to(x.dtype))`` whose weight gradient is the
     f32 convolution of the upcast ``x`` and ``g`` (module docstring)."""
 
     @staticmethod
     def forward(ctx, x, w32, stride, padding, transposed):
-        ctx.conf = (None, [stride] * 2, list(padding), [1, 1], transposed,
-                    [0, 0], 1)
+        ctx.conf = _conf(x, stride, padding, transposed)
         ctx.save_for_backward(x, w32)
         return torch.ops.aten.convolution(x, w32.to(x.dtype), *ctx.conf)
 
@@ -117,6 +143,32 @@ class _ConvF32WGrad(torch.autograd.Function):
                 dw = torch.ops.aten.convolution_backward(
                     g.float(), x.float(), w32, *ctx.conf,
                     [False, True, False])[1]
+        return dx, dw, None, None, None
+
+
+class _ConvTF32(torch.autograd.Function):
+    """``aten.convolution(x, w)`` and its gradients with TF32 allowed: the
+    raised head's f32 conv of bf16-rounded operands (`head_precision`).
+    Stock autograd would follow the global flag, which an f32 model in the
+    same process turns off (engine/export.py, engine/trainer.py), and
+    cuDNN's true-f32 weight gradient of the config-4 head (16 -> 3 channels
+    at 192^3) is a direct kernel many times slower than the TF32 one on the
+    H100 (chip_smoke.py phase 9 times both; PERF.md, PR 5)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, transposed):
+        ctx.conf = _conf(x, stride, padding, transposed)
+        ctx.save_for_backward(x, w)
+        with _tf32_convs():
+            return torch.ops.aten.convolution(x, w, *ctx.conf)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        with _tf32_convs():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, *ctx.conf, [ctx.needs_input_grad[0],
+                                     ctx.needs_input_grad[1], False])
         return dx, dw, None, None, None
 
 
@@ -136,52 +188,59 @@ class _RoundOperand(torch.autograd.Function):
 def conv_general(x: torch.Tensor, w: torch.Tensor, *, stride: int,
                  compute_dtype: torch.dtype, kind: str = "conv",
                  precision: Optional[torch.dtype] = None) -> torch.Tensor:
-    """The one conv entry point: (B, H, W, C) x (k, k, C, Co) -> NHWC.
+    """The one conv entry point: (B, *S, C) x (*k, C, Co) -> (B, *S', Co),
+    2 or 3 spatial axes.
 
     ``kind='conv'``: SAME conv at ``stride``; ``kind='convt'``: SAME
     fractionally-strided conv (output ``stride`` x larger). 16-bit compute
-    dtypes get the f32 weight gradient of `_ConvF32WGrad`; f32 (or wider)
-    compute, an explicit ``precision`` (see `head_precision`) or no weight
-    gradient runs stock autograd."""
+    dtypes get the f32 weight gradient of `_ConvF32WGrad`; an explicit
+    ``precision`` (see `head_precision`) runs `_ConvTF32`; f32 (or wider)
+    compute or no weight gradient runs stock autograd."""
+    n = spatial_dims(x)
     if precision is not None:  # round operands, compute in compute_dtype
         x = x.to(precision)
         w = _RoundOperand.apply(w, precision)
     x = x.to(compute_dtype)
-    xn = x.permute(0, 3, 1, 2)
+    xn = x.permute(0, n + 1, *range(1, n + 1))  # (B, C, *S), channels-last
     k = w.shape[0]
     if kind == "conv":
-        (ph0, ph1), (pw0, pw1) = (_same_pads(xn.shape[2], k, stride),
-                                  _same_pads(xn.shape[3], k, stride))
-        if ph0 != ph1 or pw0 != pw1:  # asymmetric: pad, then cuDNN pads 0
-            xn = F.pad(xn, (pw0, pw1, ph0, ph1))
-            ph0 = pw0 = 0
-        wn = w.permute(3, 2, 0, 1)  # (Co, C, kH, kW)
-        padding, transposed = (ph0, pw0), False
+        pads = [_same_pads(xn.shape[2 + d], k, stride) for d in range(n)]
+        if any(lo != hi for lo, hi in pads):
+            # asymmetric: pad (last axis first, as F.pad takes it), then
+            # cuDNN pads 0
+            xn = F.pad(xn, [p for lo_hi in reversed(pads) for p in lo_hi])
+            pads = [(0, 0)] * n
+        wn = w.permute(n + 1, n, *range(n))  # (Co, C, *k)
+        padding, transposed = tuple(lo for lo, _ in pads), False
     elif kind == "convt":
-        wn = w.flip(0, 1).permute(2, 3, 0, 1)  # (C_in, C_out, kH, kW)
-        padding, transposed = (0, 0), True
+        # (C_in, C_out, *k), spatially flipped
+        wn = w.flip(*range(n)).permute(n, n + 1, *range(n))
+        padding, transposed = (0,) * n, True
     else:
         raise ValueError(f"unknown conv kind {kind!r}")
-    f32_wgrad = (compute_dtype.itemsize < 4 and precision is None
-                 and torch.is_grad_enabled() and w.requires_grad)
-    if not f32_wgrad:
-        y = torch.ops.aten.convolution(
-            xn, wn.to(compute_dtype), None, [stride] * 2, list(padding),
-            [1, 1], transposed, [0, 0], 1)
-    else:
+    if precision is not None:
+        y = _ConvTF32.apply(xn, wn.to(compute_dtype), stride, padding,
+                            transposed)
+    elif (compute_dtype.itemsize < 4 and torch.is_grad_enabled()
+          and w.requires_grad):
         y = _ConvF32WGrad.apply(xn, wn.float(), stride, padding, transposed)
+    else:
+        y = torch.ops.aten.convolution(
+            xn, wn.to(compute_dtype), *_conf(xn, stride, padding, transposed))
     if kind == "convt":
-        y = y[:, :, :x.shape[1] * stride, :x.shape[2] * stride]
-    return y.permute(0, 2, 3, 1)
+        y = y[(slice(None), slice(None))
+              + tuple(slice(0, x.shape[1 + d] * stride) for d in range(n))]
+    return y.permute(0, *range(2, n + 2), 1)
 
 
 def conv(x: torch.Tensor, params: dict, *, stride: int = 1, dims: int = 2,
          compute_dtype: torch.dtype = torch.bfloat16,
          precision: Optional[torch.dtype] = None) -> torch.Tensor:
-    """SAME-padded conv in ``compute_dtype``: (B, H, W, C) -> (B, H/s, W/s, Co).
+    """SAME-padded conv in ``compute_dtype``: (B, *S, C) -> (B, *S/s, Co),
+    ``dims`` (2 or 3) spatial axes.
 
     ``precision``: see `head_precision`."""
-    check_dims(dims)
+    spatial_dims(x, dims)
     y = conv_general(x, params["w"], stride=stride, compute_dtype=compute_dtype,
                      precision=precision)
     if "b" in params:
@@ -192,9 +251,9 @@ def conv(x: torch.Tensor, params: dict, *, stride: int = 1, dims: int = 2,
 def conv_transpose(x: torch.Tensor, params: dict, *, stride: int = 2,
                    dims: int = 2,
                    compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """SAME fractionally-strided conv: (B, H, W, C) -> (B, sH, sW, Co),
-    equal to ``lax.conv_transpose(..., padding='SAME')``."""
-    check_dims(dims)
+    """SAME fractionally-strided conv: (B, *S, C) -> (B, s*S, Co), equal to
+    ``lax.conv_transpose(..., padding='SAME')``."""
+    spatial_dims(x, dims)
     y = conv_general(x, params["w"], stride=stride, compute_dtype=compute_dtype,
                      kind="convt")
     if "b" in params:
