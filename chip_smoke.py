@@ -75,6 +75,24 @@ configs/train_3d_192.yaml, with random seeded weights:
                 each), bf16 vs f32 scores; the serving forward's vol/s and
                 profile, and the sparse analysis pass's events/s.
 
+ 10. artifact — the serving artifact and the checkpoint lifecycle, with
+                cuDNN's TF32 flag left at torch's default (True): phase 7's
+                trained checkpoint exported by ``python -m
+                uresnet_tpu_torch.tools.export_serving --selftest`` as a
+                bf16 and an f32 ``.uxm`` (batch 32, 512^2), reloaded with
+                ``load_serving`` and run on phase 4's events densified: 44
+                tensor-core (bf16) or CUDA-core (f32) launches per batch
+                through the loaded program, scores vs ``build_serving_fn``;
+                the f32 forward in-process (both backends) and through the
+                f32 artifact vs the CPU's at 1e-4, the flags unchanged after;
+                phase 9's config-4 checkpoint as a 192^3 ``.uxm`` with its
+                f32 head, bit-equal scores under either TF32 flag, 0 fused
+                launches; the loaded forwards timed beside
+                ``build_serving_fn``; a bf16 release checkpoint
+                (``make_release_ckpt``) whose ``--metrics-only`` equals the
+                full checkpoint's; ``cli.train --profile`` writing a trace
+                that names CUDA kernels.
+
 Then one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
 non-zero and the last line is not printed. Scratch files go under
@@ -541,17 +559,24 @@ def profile_forwards(fns, x, path, card, reps=3, warmup=3, unit="forward",
     print(f"[profile] tables written to {path}", flush=True)
 
 
-def run_cli(cli, argv, tag="serve"):
-    """A CLI's main with its stdout echoed; returns the dict of its last
-    line (cli.infer: the metrics; cli.train: the final summary)."""
+def run_main(cli, argv, tag):
+    """A CLI's or tool's main with its stdout echoed under ``tag``; raises
+    if it exits non-zero, else returns its stdout."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
     out = buf.getvalue()
-    print("".join(f"[{tag}]{' ' * (8 - len(tag))}{line}\n"
+    print("".join(f"[{tag}]{' ' * max(8 - len(tag), 1)}{line}\n"
                   for line in out.splitlines()), end="")
     if rc != 0:
         raise RuntimeError(f"{cli.__name__} exited {rc}")
+    return out
+
+
+def run_cli(cli, argv, tag="serve"):
+    """`run_main`, returning the dict of the last line (cli.infer: the
+    metrics; cli.train: the final summary)."""
+    out = run_main(cli, argv, tag)
     return ast.literal_eval(out.strip().splitlines()[-1].split(": ", 1)[1])
 
 
@@ -1421,6 +1446,249 @@ def vol_phase(fused_mod, card, dev):
     print(f"[3d]      phase 9 wall {time.time() - t0:.1f} s | {card}", flush=True)
 
 
+def dense_batches(cfg, events, tr, n_batches):
+    """``n_batches`` batches of ``events`` as the analysis pass densifies
+    them on the card (weights ones): (data, label) per batch."""
+    from uresnet_tpu_torch.data import events as ev
+    from uresnet_tpu_torch.data.loader import make_batch_loader
+    from uresnet_tpu_torch.engine import evaluator
+
+    dcfg = dataclasses.replace(
+        cfg.data, input_files=(events,), synthetic=False, random_access=False,
+        weight_mode="ones", transfer="sparse",
+        max_points=max(cfg.data.max_points, -(-ev.max_plane_points(
+            events, tuple(cfg.data.planes)) // 256) * 256))
+    loader = make_batch_loader(dcfg, num_class=cfg.model.num_class,
+                               train=False, ndims=cfg.model.dims)
+    out = []
+    try:
+        for _ in range(n_batches):
+            host = loader.next()
+            host.pop("cursor", None)
+            d = evaluator._densify_ones(cfg, tr.device_batch(host))
+            out.append((d["data"], d["label"]))
+    finally:
+        loader.stop()
+        if hasattr(loader, "close"):
+            loader.close()
+    return out
+
+
+def export_cli(argv):
+    """``python -m uresnet_tpu_torch.tools.export_serving`` in-process
+    (`run_main`), its selftest required; returns its wall s."""
+    from uresnet_tpu_torch.tools import export_serving
+
+    t0 = time.perf_counter()
+    out = run_main(export_serving, argv, "artifact")
+    if "selftest OK" not in out:
+        raise RuntimeError("export_serving ran no selftest")
+    return time.perf_counter() - t0
+
+
+def served_agreement(got, want, data, what):
+    """Two softmax score batches of the same input: max |d| and argmax
+    agreement over charge pixels, within the forward tolerances."""
+    d = (got - want).abs().max().item()
+    charge = data[..., 0] > 0
+    agree = (got.argmax(-1) == want.argmax(-1))[charge].float().mean().item()
+    if not (d <= FWD_MAX_SOFTMAX_DIFF and agree >= FWD_MIN_AGREE):
+        raise AssertionError(f"{what}: max softmax diff {d} (tol "
+                             f"{FWD_MAX_SOFTMAX_DIFF}), argmax agreement "
+                             f"{agree} (min {FWD_MIN_AGREE})")
+    return d, agree
+
+
+def tf32_flags():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def artifact_phase(cfg_path, cfg, events, fused_mod, card, dev, t_fwd5):
+    """Phase 10: the serving artifact and the checkpoint lifecycle (see the
+    module docstring). ``t_fwd5`` is phase 5's forward time."""
+    from uresnet_tpu_torch import load_config
+    from uresnet_tpu_torch.cli import infer, train
+    from uresnet_tpu_torch.engine.checkpoint import load_serving_state
+    from uresnet_tpu_torch.engine.export import (build_logits_fn,
+                                                 build_serving_fn,
+                                                 load_serving)
+    from uresnet_tpu_torch.engine.trainer import Trainer
+    from uresnet_tpu_torch.models.convert import load_jax_params
+    from uresnet_tpu_torch.models.uresnet import UResNet
+    from uresnet_tpu_torch.tools import make_release_ckpt
+
+    t_phase = time.time()
+    default_flags = tf32_flags()
+    if not default_flags[0]:
+        raise AssertionError("cuDNN's allow_tf32 is off before phase 10: "
+                             "something changed torch's default")
+    S, B = cfg.data.image_size, cfg.data.batch_size
+    ckpt = os.path.join(WORK, "train_ckpt", f"step_{TRAIN_STEPS:08d}.npz")
+    tr = Trainer(cfg, device=dev)
+    ts = tr.init_state()
+    load_jax_params(ts.model, *load_serving_state(ckpt)[:2])
+    batches = dense_batches(cfg, events, tr, N_EVENTS // B)
+
+    # 10a-b. export, reload and serve the flagship in bf16 and f32
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="float32"))
+    loaded = {}
+    for name, c, extra, kernel in (
+            ("bf16", cfg, [], "tensor_core"),
+            ("f32", cfg32, ["model.compute_dtype=float32"], "cuda_core")):
+        out = os.path.join(WORK, f"flagship_{name}.uxm")
+        wall = export_cli(["--config", cfg_path, "--checkpoint", ckpt,
+                           "--output", out, "--batch", str(B), "--selftest",
+                           "--device", DEVICE, *extra])
+        t0 = time.perf_counter()
+        fn, meta = load_serving(out, device=DEVICE)
+        t_load = time.perf_counter() - t0
+        serve = build_serving_fn(c, ts.model)
+        scores, counts, _ = counted(fused_mod, lambda: [fn(x) for x, _ in batches])
+        expect_launches(counts, len(batches), kernel)
+        worst = [served_agreement(got, serve(x), x, f"{name} artifact")
+                 for got, (x, _) in zip(scores, batches)]
+        loaded[name] = fn
+        print(f"[artifact] {name} flagship .uxm: {os.path.getsize(out)} bytes "
+              f"({os.path.getsize(out) / 1e6:.3f} MB), export + selftest "
+              f"{wall:.2f} s, load {t_load:.3f} s; {len(batches)} batches of "
+              f"phase 4's events: launches {counts} (= 44 per batch on the "
+              f"{kernel.replace('_', '-')} kernel); vs build_serving_fn max "
+              f"softmax |d| {max(d for d, _ in worst):.3e}, argmax agreement "
+              f"{min(a for _, a in worst):.5f} | {card}", flush=True)
+
+    # 10c. true f32 with torch's default TF32 setting left in place
+    cpu_model = UResNet(cfg.model, generator=torch.Generator())
+    load_jax_params(cpu_model, *load_serving_state(ckpt)[:2])
+    x2 = batches[0][0][:2]
+    with torch.no_grad():
+        want_logits = build_logits_fn(cfg32, cpu_model)(x2.cpu())
+    errs = {}
+    for backend in ("auto", "xla"):
+        cb = dataclasses.replace(cfg32, model=dataclasses.replace(
+            cfg32.model, kernel_backend=backend))
+        got = build_logits_fn(cb, ts.model)(x2).cpu()
+        errs[backend] = ((got - want_logits).abs().max()
+                         / want_logits.abs().max()).item()
+    got = loaded["f32"](batches[0][0])[:2].cpu()
+    errs["artifact"] = (got - torch.softmax(want_logits, -1)).abs().max().item()
+    # what the same check reads for a stock f32 conv under the default
+    w = ts.model.enc0_b0.cb1.conv.w.detach()
+    xs = torch.randn(2, S, S, w.shape[2], generator=torch.Generator().manual_seed(
+        SEED), dtype=torch.float32)
+    stock = torch.nn.functional.conv2d(
+        xs.to(dev).permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1).cpu()
+    ref = torch.nn.functional.conv2d(xs.permute(0, 3, 1, 2),
+                                     w.cpu().permute(3, 2, 0, 1), padding=1)
+    stock_err = ((stock - ref).abs().max() / ref.abs().max()).item()
+    if max(errs.values()) > 1e-4 or tf32_flags() != default_flags:
+        raise AssertionError(f"f32 card vs CPU {errs} (limit 1e-4 of the "
+                             f"max), flags {tf32_flags()} vs {default_flags}")
+    print(f"[artifact] f32 with cuDNN's allow_tf32 left {default_flags[0]} "
+          f"(torch's default): card vs CPU at 2 rows of {S}^2, logits "
+          f"'auto' {errs['auto']:.3e}, 'xla' {errs['xla']:.3e} of the max, "
+          f"the f32 artifact's softmax {errs['artifact']:.3e} (limit 1e-4); "
+          f"flags after {tf32_flags()}; a stock f32 conv "
+          f"{w.shape[2]}->{w.shape[3]} @{S}^2 under the same default "
+          f"{stock_err:.3e} of the max | {card}", flush=True)
+
+    # 10d. config 4's volume artifact: the f32 head's TF32 travels with it
+    vol_cfg_path = os.path.join(WORK, "config4.json")
+    vol_cfg = load_config(vol_cfg_path)
+    vol_ckpt = os.path.join(WORK, "vol_ckpt", f"step_{TRAIN_STEPS:08d}.npz")
+    vol_out = os.path.join(WORK, "config4.uxm")
+    wall = export_cli(["--config", vol_cfg_path, "--checkpoint", vol_ckpt,
+                       "--output", vol_out, "--batch", "1", "--selftest",
+                       "--device", DEVICE])
+    vfn, _ = load_serving(vol_out, device=DEVICE)
+    V = vol_cfg.data.image_size
+    xv = torch.rand(1, V, V, V, 1, generator=torch.Generator().manual_seed(SEED))
+    xv = (xv * (xv > 0.999)).to(dev)
+    vtr = Trainer(vol_cfg, device=dev)
+    vts = vtr.init_state()
+    load_jax_params(vts.model, *load_serving_state(vol_ckpt)[:2])
+    vserve = build_serving_fn(vol_cfg, vts.model)
+    runs = {}
+    for flag in (True, False):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = flag
+        try:
+            runs[flag], counts, _ = counted(fused_mod, lambda: vfn(xv))
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = default_flags
+        expect_launches(counts, 1, per_batch=0)
+    if not torch.equal(runs[True], runs[False]):
+        raise AssertionError("3D artifact: scores depend on the caller's "
+                             "TF32 flags")
+    d, agree = served_agreement(runs[True], vserve(xv), xv, "3D artifact")
+    print(f"[artifact] config-4 .uxm (batch 1, {V}^3, f32 head): "
+          f"{os.path.getsize(vol_out)} bytes, export + selftest {wall:.2f} s; "
+          f"scores bit-equal under allow_tf32 True and False; vs "
+          f"build_serving_fn max softmax |d| {d:.3e}, argmax agreement "
+          f"{agree:.5f}; fused launches {counts} | {card}", flush=True)
+
+    # 10e. the loaded forwards timed beside build_serving_fn, in turns
+    x32 = batches[0][0]
+    serve = build_serving_fn(cfg, ts.model)
+    t = {k: [] for k in ("in-process", "artifact", "3d in-process", "3d artifact")}
+    for k in ("in-process", "artifact", "artifact", "in-process"):
+        fn = serve if k == "in-process" else loaded["bf16"]
+        t[k].append(time_ms(lambda: fn(x32), reps=7))
+    for k in ("3d in-process", "3d artifact", "3d artifact", "3d in-process"):
+        fn = vserve if k == "3d in-process" else vfn
+        t[k].append(time_ms(lambda: fn(xv), reps=5))
+    print(f"[artifact] B={B} {S}^2 bf16 forward+softmax: loaded artifact "
+          f"{t['artifact']} ms = {[round(B / v * 1e3, 1) for v in t['artifact']]} "
+          f"img/s, build_serving_fn {t['in-process']} ms; phase 5's forward "
+          f"through the op {t_fwd5:.2f} ms | {card}", flush=True)
+    print(f"[artifact] B=1 {V}^3 forward+softmax: loaded artifact "
+          f"{t['3d artifact']} ms = "
+          f"{[round(1e3 / v, 3) for v in t['3d artifact']]} vol/s, "
+          f"build_serving_fn {t['3d in-process']} ms | {card}", flush=True)
+    del vfn, vserve, vts, vtr, runs
+    torch.cuda.empty_cache()
+
+    # 10f. a bf16 release checkpoint evaluates as the full one
+    rel = os.path.join(WORK, "release", "flagship_bf16.npz")
+    run_main(make_release_ckpt, [ckpt, rel, "--kernels-dtype", "bfloat16",
+                                 "--force"], "artifact")
+    argv = [cfg_path, "--metrics-only", "--input", events, "--device", DEVICE]
+    m_full = run_cli(infer, argv + ["--checkpoint", ckpt], tag="artifact")
+    m_rel = run_cli(infer, argv + [f"train.load_file={rel}",
+                                   "train.load_params_only=true"],
+                    tag="artifact")
+    if m_rel != m_full or m_full["n_events"] != N_EVENTS:
+        raise AssertionError(f"release --metrics-only {m_rel} != full {m_full}")
+    print(f"[artifact] release checkpoint: {os.path.getsize(ckpt)} -> "
+          f"{os.path.getsize(rel)} bytes; --metrics-only on {N_EVENTS} events "
+          f"equal to the full checkpoint's in every key (miou "
+          f"{m_rel['miou']!r})", flush=True)
+
+    # 10g. cli.train --profile: one summary window of a short flagship run
+    prof = os.path.join(WORK, "profile_trace")
+    run_main(train, [
+        cfg_path, f"data.input_files={os.path.join(WORK, 'train.usef')}",
+        "data.synthetic=false", "train.summary_iter=2",
+        "train.checkpoint_iter=0", "train.val_iter=0",
+        f"train.checkpoint_dir={os.path.join(WORK, 'prof_ckpt')}",
+        f"train.log_dir={os.path.join(WORK, 'prof_log')}",
+        "--profile", prof, "--device", DEVICE], "artifact")
+    traces = [os.path.join(prof, f) for f in os.listdir(prof)]
+    with open(traces[0]) as f:
+        events_ = json.load(f)["traceEvents"]
+    kernels = collections.Counter(e["name"] for e in events_
+                                  if e.get("cat") == "kernel")
+    if len(traces) != 1 or not kernels:
+        raise AssertionError(f"--profile wrote {traces}, {len(kernels)} "
+                             f"distinct CUDA kernels")
+    print(f"[artifact] --profile: {os.path.basename(traces[0])}, "
+          f"{os.path.getsize(traces[0])} bytes, {sum(kernels.values())} CUDA "
+          f"kernel events of {len(kernels)} kernels; top: "
+          f"{[k[:60] for k, _ in kernels.most_common(3)]}", flush=True)
+    print(f"[artifact] phase 10 wall {time.time() - t_phase:.1f} s | {card}",
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch")
@@ -1429,8 +1697,6 @@ def main():
     print(f"[device]  {card} | torch {torch.__version__} CUDA "
           f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)",
           flush=True)
-    torch.backends.cudnn.allow_tf32 = False  # the plain versions: true f32
-    torch.backends.cuda.matmul.allow_tf32 = False
 
     from uresnet_tpu_torch import generate_file, load_config
     from uresnet_tpu_torch.cli import infer
@@ -1540,6 +1806,9 @@ def main():
 
     # 9. BASELINE config 4: the 3D U-ResNet at 192^3, no fused launch
     vol_phase(fused_mod, card, dev)
+
+    # 10. the serving artifact and the checkpoint lifecycle
+    artifact_phase(cfg_path, cfg, events, fused_mod, card, dev, t_auto)
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "uresnet_tpu")
                     or m.startswith(("jax.", "jaxlib", "uresnet_tpu.")))

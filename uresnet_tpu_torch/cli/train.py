@@ -1,12 +1,14 @@
 """Train entry point of the port (port of uresnet_tpu/cli/train.py).
 
     python -m uresnet_tpu_torch.cli.train CONFIG [KEY=value ...] \\
-        [--resume] [--iterations N] [--device cuda]
+        [--resume] [--iterations N] [--device cuda] [--profile DIR]
 
 A config file (YAML needs PyYAML; JSON and reference-style KEY-value files
 do not) plus ``section.field=value`` or reference-style ``KEY=value``
 overrides. Checkpoints are written in the JAX package's npz layout, so
-either package resumes or serves them.
+either package resumes or serves them. ``--profile DIR`` trains the first
+summary window only, inside a ``torch.profiler`` trace written to DIR
+(engine/profiling.py), and exits 0.
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ def main(argv=None):
     p.add_argument("--distributed", action="store_true",
                    help="multi-process training (not ported yet)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="profiler trace of the first summary window "
-                        "(not ported yet)")
+                   help="capture a torch.profiler trace of the first "
+                        "summary window into DIR")
     # KEY=value overrides may come after flags: argparse cannot interleave
     # them with positionals, so unknown KEY=value tokens are overrides
     args, extra = p.parse_known_args(argv)
@@ -40,10 +42,9 @@ def main(argv=None):
         if "=" not in tok or tok.startswith("-"):
             p.error(f"unrecognized argument: {tok}")
         args.overrides.append(tok)
-    for flag, on in (("--distributed", args.distributed),
-                     ("--profile", args.profile)):
-        if on:
-            p.error(f"{flag} is not ported yet (ROADMAP.md, modules to port)")
+    if args.distributed:
+        p.error("--distributed is not ported yet (ROADMAP.md, modules to "
+                "port)")
 
     overrides = list(args.overrides)
     if args.config and "=" in args.config:
@@ -54,6 +55,15 @@ def main(argv=None):
 
     trainer = Trainer(cfg, device=args.device)
     print(f"device: {trainer.device}", flush=True)
+    if args.profile:
+        from uresnet_tpu_torch.engine.profiling import trace
+
+        with trace(args.profile, device=trainer.device):
+            trainer.fit(iterations=min(args.iterations or cfg.train.summary_iter,
+                                       cfg.train.summary_iter),
+                        resume=args.resume)
+        print(f"profile trace written to {args.profile}", flush=True)
+        return 0
     _, metrics = trainer.fit(iterations=args.iterations, resume=args.resume)
     print("final:", {k: round(v, 5) for k, v in metrics.items()}, flush=True)
     return 0

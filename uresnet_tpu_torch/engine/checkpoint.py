@@ -121,8 +121,12 @@ def load_checkpoint(path: str, template: Dict[str, Any], *,
         if tuple(got.shape) != tuple(leaf.shape):
             raise ValueError(f"leaf {key!r}: checkpoint shape "
                              f"{tuple(got.shape)} != template {tuple(leaf.shape)}")
-        out[dotted] = (_as_tensor(got).to(leaf.dtype) if torch.is_tensor(leaf)
-                       else np.asarray(got).astype(np.asarray(leaf).dtype))
+        if torch.is_tensor(leaf):
+            out[dotted] = _as_tensor(got).to(leaf.dtype)
+        elif torch.is_tensor(got):  # a bf16 release kernel: numpy has no bf16
+            out[dotted] = got.float().numpy().astype(np.asarray(leaf).dtype)
+        else:
+            out[dotted] = np.asarray(got).astype(np.asarray(leaf).dtype)
     return unflatten_tree(out)
 
 

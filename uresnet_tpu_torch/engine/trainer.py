@@ -82,10 +82,6 @@ class Trainer:
                 f"{cfg.model.kernel_backend!r}")
         self.cfg = cfg
         self.device = torch.device(device)
-        if cfg.model.compute_dtype == "float32":
-            # f32 means true f32, as JAX's Precision.HIGHEST: no TF32
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
         self._freeze = None
         if cfg.optim.freeze:  # validate the patterns before any training
             names = [n for n, _ in self._new_model(torch.device("meta"))

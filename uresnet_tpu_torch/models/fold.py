@@ -8,8 +8,10 @@ preceding conv:
                                            b = bias - mean * g
 
 The folded forward routes every eligible conv (`fused_eligible`) through
-the hand-written kernel ops/cuda/conv2d.py ``fused_conv3x3_bn_relu_v2``,
-with ``cb2`` taking the residual add and ReLU into the same pass.
+the op ``uresnet_tpu_torch::fused_conv3x3_bn_relu_v2`` (ops/cuda/conv2d.py:
+the hand-written kernel on CUDA), with ``cb2`` taking the residual add and
+ReLU into the same pass. In-process serving, analysis and an exported
+``.uxm`` (engine/export.py) share this one path.
 """
 
 from __future__ import annotations
@@ -26,10 +28,14 @@ from uresnet_tpu_torch.utils.dtypes import canonical_dtype
 KERNEL_BACKENDS = ("auto", "xla", "pallas")
 
 
-def _fold_unit(conv_p: dict, bn_p: dict, bn_s: dict, eps: float) -> dict:
+def _fold_unit(conv_p: dict, bn_p: dict, bn_s: dict, eps: float,
+               cd: torch.dtype) -> dict:
     g = bn_p["scale"].float() * torch.rsqrt(bn_s["var"].float() + eps)
     b = bn_p["bias"].float() - bn_s["mean"].float() * g
-    w = conv_p["w"].float() * g  # broadcast over the out-channel dim
+    # the kernel as the model computes with it (rounded to the compute
+    # dtype, as every conv casts it), then scaled: a bf16 release file's
+    # kernels fold to the same weights as the full checkpoint's
+    w = conv_p["w"].to(cd).float() * g  # broadcast over the out-channel dim
     out = {"w": w.to(conv_p["w"].dtype), "b": b.to(conv_p["w"].dtype)}
     if "b" in conv_p:
         out["b"] = (conv_p["b"].float() * g + b).to(conv_p["w"].dtype)
@@ -41,7 +47,10 @@ def fold_batchnorm(params: Dict[str, Any], state: Dict[str, Any],
     """Fold every conv+BN unit's stats into conv weights+bias.
 
     Same keys as ``params``; each conv-BN pair becomes a biased conv;
-    projection shortcuts and the head conv (no BN) pass through."""
+    projection shortcuts and the head conv (no BN) pass through. A conv's
+    kernel is rounded to ``cfg.compute_dtype`` before the BN scale is
+    folded in (the JAX package folds the unrounded kernel; equal in f32)."""
+    cd = canonical_dtype(cfg.compute_dtype)
     folded: Dict[str, Any] = {}
     for name, p in params.items():
         if name == "head":
@@ -49,15 +58,15 @@ def fold_batchnorm(params: Dict[str, Any], state: Dict[str, Any],
         elif "cb1" in p:  # residual block
             folded[name] = {
                 "cb1": _fold_unit(p["cb1"]["conv"], p["cb1"]["bn"],
-                                  state[name]["cb1"]["bn"], cfg.bn_eps),
+                                  state[name]["cb1"]["bn"], cfg.bn_eps, cd),
                 "cb2": _fold_unit(p["cb2"]["conv"], p["cb2"]["bn"],
-                                  state[name]["cb2"]["bn"], cfg.bn_eps),
+                                  state[name]["cb2"]["bn"], cfg.bn_eps, cd),
             }
             if "proj" in p:
                 folded[name]["proj"] = p["proj"]
         else:  # conv_bn unit (stem / down / up)
             folded[name] = _fold_unit(p["conv"], p["bn"], state[name]["bn"],
-                                      cfg.bn_eps)
+                                      cfg.bn_eps, cd)
     return folded
 
 

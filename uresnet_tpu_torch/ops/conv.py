@@ -32,9 +32,11 @@ The raised head (`head_precision`) convolves f32 tensors that hold
 bf16-rounded operands; it runs with TF32 allowed in its forward and both
 gradients (`_ConvTF32`), whatever the global flag says.
 
-Float32 means true float32: callers turn TF32 off for cuDNN and matmul
-(engine/export.py build_serving_fn, engine/trainer.py), as JAX runs f32 at
-HIGHEST.
+Float32 means true float32, as JAX runs f32 at HIGHEST: an f32 conv runs
+with cuDNN's TF32 off in its forward and both gradients (`_ConvTrueF32`),
+whatever the global flag says. Each of these scopes sets
+``torch.backends.cudnn.allow_tf32`` for its own conv and puts it back, so
+no conv of the port changes the process's flags.
 """
 
 from __future__ import annotations
@@ -101,17 +103,28 @@ def _same_pads(size: int, k: int, stride: int):
 
 
 @contextlib.contextmanager
-def _tf32_convs():
-    """TF32 allowed in cuDNN for the enclosed convs only. Not
-    ``torch.backends.cudnn.flags(allow_tf32=True)``: that context manager
-    also sets every other flag to its own defaults, cuDNN disabled among
-    them."""
+def _cudnn_tf32(allow: bool):
+    """cuDNN's ``allow_tf32`` set to ``allow`` for the enclosed convs only,
+    then put back. Not ``torch.backends.cudnn.flags(allow_tf32=...)``: that
+    context manager also sets every other flag to its own defaults, cuDNN
+    disabled among them."""
     prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = allow
     try:
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+
+
+def _tf32_convs():
+    """TF32 allowed in cuDNN for the enclosed convs only."""
+    return _cudnn_tf32(True)
+
+
+def true_f32():
+    """TF32 off in cuDNN for the enclosed convs only: f32 convs in true
+    f32, as JAX's ``Precision.HIGHEST``."""
+    return _cudnn_tf32(False)
 
 
 def _conf(x, stride, padding, transposed):
@@ -149,11 +162,10 @@ class _ConvF32WGrad(torch.autograd.Function):
 class _ConvTF32(torch.autograd.Function):
     """``aten.convolution(x, w)`` and its gradients with TF32 allowed: the
     raised head's f32 conv of bf16-rounded operands (`head_precision`).
-    Stock autograd would follow the global flag, which an f32 model in the
-    same process turns off (engine/export.py, engine/trainer.py), and
-    cuDNN's true-f32 weight gradient of the config-4 head (16 -> 3 channels
-    at 192^3) is a direct kernel many times slower than the TF32 one on the
-    H100 (chip_smoke.py phase 9 times both; PERF.md, PR 5)."""
+    Stock autograd would follow the global flag, which a caller may have
+    turned off, and cuDNN's true-f32 weight gradient of the config-4 head
+    (16 -> 3 channels at 192^3) is a direct kernel many times slower than
+    the TF32 one on the H100 (chip_smoke.py phase 9 times both; PERF.md)."""
 
     @staticmethod
     def forward(ctx, x, w, stride, padding, transposed):
@@ -166,6 +178,28 @@ class _ConvTF32(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         with _tf32_convs():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, *ctx.conf, [ctx.needs_input_grad[0],
+                                     ctx.needs_input_grad[1], False])
+        return dx, dw, None, None, None
+
+
+class _ConvTrueF32(torch.autograd.Function):
+    """``aten.convolution(x, w)`` and its gradients with TF32 off: the
+    f32-compute conv in true f32 whatever the global flag says (torch
+    allows TF32 in cuDNN by default)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, transposed):
+        ctx.conf = _conf(x, stride, padding, transposed)
+        ctx.save_for_backward(x, w)
+        with true_f32():
+            return torch.ops.aten.convolution(x, w, *ctx.conf)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        with true_f32():
             dx, dw, _ = torch.ops.aten.convolution_backward(
                 g, x, w, *ctx.conf, [ctx.needs_input_grad[0],
                                      ctx.needs_input_grad[1], False])
@@ -193,9 +227,9 @@ def conv_general(x: torch.Tensor, w: torch.Tensor, *, stride: int,
 
     ``kind='conv'``: SAME conv at ``stride``; ``kind='convt'``: SAME
     fractionally-strided conv (output ``stride`` x larger). 16-bit compute
-    dtypes get the f32 weight gradient of `_ConvF32WGrad`; an explicit
-    ``precision`` (see `head_precision`) runs `_ConvTF32`; f32 (or wider)
-    compute or no weight gradient runs stock autograd."""
+    dtypes get the f32 weight gradient of `_ConvF32WGrad` (stock autograd
+    when no weight gradient is taken); an explicit ``precision`` (see
+    `head_precision`) runs `_ConvTF32`; f32 compute runs `_ConvTrueF32`."""
     n = spatial_dims(x)
     if precision is not None:  # round operands, compute in compute_dtype
         x = x.to(precision)
@@ -224,6 +258,9 @@ def conv_general(x: torch.Tensor, w: torch.Tensor, *, stride: int,
     elif (compute_dtype.itemsize < 4 and torch.is_grad_enabled()
           and w.requires_grad):
         y = _ConvF32WGrad.apply(xn, wn.float(), stride, padding, transposed)
+    elif compute_dtype == torch.float32:
+        y = _ConvTrueF32.apply(xn, wn.to(compute_dtype), stride, padding,
+                               transposed)
     else:
         y = torch.ops.aten.convolution(
             xn, wn.to(compute_dtype), *_conf(xn, stride, padding, transposed))

@@ -1,5 +1,5 @@
 """Fused 3x3 conv + affine (+ residual) (+ ReLU): CUDA kernel wrapper and its
-plain version.
+plain version, registered as PyTorch operators.
 
 Port of uresnet_tpu/ops/pallas/conv2d.py::fused_conv3x3_bn_relu_v2; the
 kernels are csrc/conv2d.cu. ``block_h`` is gone: it was TPU tiling. The v1
@@ -7,16 +7,26 @@ Pallas kernel ``fused_conv3x3_bn_relu`` computes the same function with
 another TPU blocking; its name is bound here to the same kernels and plain
 version.
 
+Both entry points are ``torch.library`` custom ops,
+``uresnet_tpu_torch::fused_conv3x3_bn_relu_v2`` and
+``uresnet_tpu_torch::fused_conv3x3_bn_relu``, with one set of
+implementations: on CUDA the kernel launch, on the CPU the plain version,
+and a fake implementation that gives the output's shape and dtype for
+tracing. So ``torch.export`` keeps the op as one node of the graph
+(engine/export.py), and a loaded artifact launches the same kernel. Importing
+this module registers them.
+
 A CUDA call goes to one of two kernels, chosen by dtype and shape alone
 (`uses_tensor_cores`): bf16 with C and Co multiples of 16 — every conv of
 the serving forward — runs the tensor-core kernel; f32 (true f32, never
 TF32) and other channel counts run the CUDA-core kernel.
 
-Both wrappers launch a kernel for CUDA tensors — or raise; they never fall
-back — and run the plain version for CPU tensors. ``launches`` (v2) and
-``launches_v1`` count launches by entry point, ``launches_tensor_core`` and
-``launches_cuda_core`` by kernel (plain-version calls count nowhere), so a
-run can show which kernel served its path.
+On a CUDA tensor an op launches a kernel or raises; it never falls back. On
+a CPU tensor it runs the plain version. The counters are bumped inside the
+CUDA implementation, where a kernel is launched, so launches from a loaded
+artifact count too: ``launches`` (v2) and ``launches_v1`` by entry point,
+``launches_tensor_core`` and ``launches_cuda_core`` by kernel (plain-version
+calls count nowhere), so a run can show which kernel served its path.
 """
 
 from __future__ import annotations
@@ -27,6 +37,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from uresnet_tpu_torch.ops.conv import true_f32
 
 launches = 0
 launches_v1 = 0
@@ -57,10 +69,11 @@ def _lib() -> ctypes.CDLL:
 
 def fused_conv3x3_bn_relu_v2_reference(x, w, scale, bias, residual=None, *,
                                        relu: bool = True) -> torch.Tensor:
-    """Plain version: f32 conv of the upcast inputs, the same f32 epilogue,
-    one cast to x's dtype."""
-    y = F.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
-                 padding=1).permute(0, 2, 3, 1)
+    """Plain version: f32 conv of the upcast inputs (true f32: cuDNN's TF32
+    off for it), the same f32 epilogue, one cast to x's dtype."""
+    with true_f32():
+        y = F.conv2d(x.float().permute(0, 3, 1, 2),
+                     w.float().permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
     y = y * scale.float() + bias.float()
     if residual is not None:
         y = y + residual.float()
@@ -70,6 +83,8 @@ def fused_conv3x3_bn_relu_v2_reference(x, w, scale, bias, residual=None, *,
 
 
 def _check(x, w, scale, bias, residual):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in _ENTRY:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.dim() != 4:
@@ -98,14 +113,12 @@ def uses_tensor_cores(dtype: torch.dtype, C: int, Co: int) -> bool:
     return dtype == torch.bfloat16 and C % 16 == 0 and Co % 16 == 0
 
 
-def _fused(x, w, scale, bias, residual, relu):
-    """(output, whether a kernel was launched)."""
+def _launch(x, w, scale, bias, residual, relu, entry: str) -> torch.Tensor:
+    """The CUDA implementation: one launch of the kernel `uses_tensor_cores`
+    picks, on the current stream, counted by kernel and in the module
+    global ``entry`` (the entry point's counter). Raises on operands the
+    kernel does not take and on a failed launch."""
     B, H, W, C, Co = _check(x, w, scale, bias, residual)
-    if x.device.type == "cpu":
-        return fused_conv3x3_bn_relu_v2_reference(x, w, scale, bias, residual,
-                                                  relu=relu), False
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     tensors = (x, w, scale, bias) + ((residual,) if residual is not None else ())
     for t in tensors:
         if t.device != x.device or not t.is_contiguous():
@@ -115,7 +128,7 @@ def _fused(x, w, scale, bias, residual, relu):
         raise ValueError(f"batch {B} exceeds the kernel's grid limit 65535")
     out = torch.empty((B, H, W, Co), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
-        return out, False
+        return out
     lib = _lib()
     tensor_core = uses_tensor_cores(x.dtype, C, Co)
     if tensor_core and any(t.data_ptr() % 16 for t in tensors + (out,)):
@@ -135,7 +148,40 @@ def _fused(x, w, scale, bias, residual, relu):
         launches_tensor_core += 1
     else:
         launches_cuda_core += 1
-    return out, True
+    globals()[entry] += 1
+    return out
+
+
+_SCHEMA = ("(Tensor x, Tensor w, Tensor scale, Tensor bias, Tensor? residual, "
+           "bool relu) -> Tensor")
+
+
+def _register(name: str, counter: str):
+    """The op ``uresnet_tpu_torch::<name>``: the plain version on the CPU,
+    `_launch` on CUDA (counted in ``counter``), an empty output of the
+    right shape and dtype when traced."""
+
+    def cpu(x, w, scale, bias, residual, relu):
+        return fused_conv3x3_bn_relu_v2_reference(
+            x, w, scale, bias, residual, relu=relu).contiguous()
+
+    op = torch.library.custom_op(f"uresnet_tpu_torch::{name}", cpu,
+                                 mutates_args=(), device_types="cpu",
+                                 schema=_SCHEMA)
+
+    @op.register_kernel("cuda")
+    def _(x, w, scale, bias, residual, relu):
+        return _launch(x, w, scale, bias, residual, relu, counter)
+
+    @op.register_fake
+    def _(x, w, scale, bias, residual, relu):
+        return x.new_empty((*x.shape[:3], w.shape[3]))
+
+    return op
+
+
+_op_v2 = _register("fused_conv3x3_bn_relu_v2", "launches")
+_op_v1 = _register("fused_conv3x3_bn_relu", "launches_v1")
 
 
 def fused_conv3x3_bn_relu_v2(x: torch.Tensor, w: torch.Tensor,
@@ -146,11 +192,10 @@ def fused_conv3x3_bn_relu_v2(x: torch.Tensor, w: torch.Tensor,
 
     x (B, H, W, C) f32/bf16; w (3, 3, C, Co) in x's dtype; scale, bias
     (Co,) f32; residual (B, H, W, Co) in x's dtype or None. f32
-    accumulation, one write in x's dtype."""
-    out, launched = _fused(x, w, scale, bias, residual, relu)
-    global launches
-    launches += launched
-    return out
+    accumulation, one write in x's dtype. Checks the operands, then calls
+    the op ``uresnet_tpu_torch::fused_conv3x3_bn_relu_v2``."""
+    _check(x, w, scale, bias, residual)
+    return _op_v2(x, w, scale, bias, residual, relu)
 
 
 # v1 (uresnet_tpu/ops/pallas/conv2d.py:182): the same function, so the same
@@ -162,9 +207,8 @@ def fused_conv3x3_bn_relu(x: torch.Tensor, w: torch.Tensor,
                           scale: torch.Tensor, bias: torch.Tensor,
                           residual: Optional[torch.Tensor] = None, *,
                           relu: bool = True) -> torch.Tensor:
-    """The v1 entry point: `fused_conv3x3_bn_relu_v2`'s kernels and
-    operands, counted in ``launches_v1``."""
-    out, launched = _fused(x, w, scale, bias, residual, relu)
-    global launches_v1
-    launches_v1 += launched
-    return out
+    """The v1 entry point: `fused_conv3x3_bn_relu_v2`'s operands and
+    implementations under the op ``uresnet_tpu_torch::fused_conv3x3_bn_relu``,
+    counted in ``launches_v1``."""
+    _check(x, w, scale, bias, residual)
+    return _op_v1(x, w, scale, bias, residual, relu)
