@@ -92,6 +92,26 @@ configs/train_3d_192.yaml, with random seeded weights:
                 (``make_release_ckpt``) whose ``--metrics-only`` equals the
                 full checkpoint's; ``cli.train --profile`` writing a trace
                 that names CUDA kernels.
+ 11. dp       — data parallelism at configs/train_2d_512_dp8.yaml's share
+                of one card (batch 32, plane 2, augment, parallel.data 0),
+                each rank a ``chip_smoke.py --dp-worker`` process in the
+                torchrun environment: ``cli.train --distributed`` at world
+                1 on NCCL (10 steps and one ``val_exact``: losses against a
+                one-process run, 44 fused launches per local batch, the
+                all-reduces per step from the profiler, the DP step's ms
+                against phase 7's); two ranks on the one card through gloo
+                between CUDA tensors (4 steps at global batch 32 and one
+                ``evaluate_dataset``): the ranks' replicas bit-equal, the
+                losses and rank 0's checkpoints against one process on the
+                rank-major batch, both ranks' evaluations equal and equal to
+                one process's on rank 0's checkpoint, only rank 0 wrote;
+ 12. mp       — BASELINE config 3 (configs/train_multiplane.yaml: 30 rows =
+                10 events x 3 planes, augment): 30 ``cli.train`` steps with
+                one ``val_exact`` (n_pixels = events x 3 x 512^2);
+                train_step_light at 30 and 96 rows (without remat if the
+                30-row peak x 3.2 stays under 72 GiB) and batch 64 of plane
+                2; ``cli.infer`` on 3-plane events: sparse and dense exports
+                bit-equal, ``--metrics-only``, 44 launches per batch.
 
 Then one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -101,7 +121,7 @@ build/uresnet_tpu_torch/smoke/ in the checkout.
     python3 chip_smoke.py --kernels-only
 
 runs phases 1-3 alone (a short check of the kernels) and prints no result
-line.
+line. ``--dp-worker MODE SPEC`` is one rank of phase 11, started by it.
 """
 
 from __future__ import annotations
@@ -1689,6 +1709,526 @@ def artifact_phase(cfg_path, cfg, events, fused_mod, card, dev, t_fwd5):
           flush=True)
 
 
+# -- phase 11: data parallelism ---------------------------------------------------
+
+# configs/train_2d_512_dp8.yaml at one card's share of its global batch (256
+# over 8 cards: 32 rows, plane 2, class balance, augment, parallel.data 0 =
+# every process), written out as FLAGSHIP is
+DP_CFG = {
+    "model": dict(FLAGSHIP["model"]),
+    "data": {"image_size": 512, "batch_size": 32, "planes": [2],
+             "weight_mode": "class_balance", "augment": True,
+             "num_threads": 6, "backend": "auto"},
+    "parallel": {"data": 0},
+    "optim": {"lr": 2.0e-3, "schedule": "cosine", "decay_steps": 20000},
+    "train": {"iterations": 20000, "summary_iter": 50,
+              "checkpoint_iter": 1000, "val_iter": 500},
+}
+DP_STEPS = 10       # phase 11a: cli.train --distributed steps, then val_exact
+DP_GLOO_STEPS = 4   # phase 11b: two ranks through gloo, global batch 32
+# bf16 runs of the same seed and data, DP against one process: activations
+# round to 2^-8, so a BN sum split across ranks (or packed for an
+# all-reduce) moves some of the 8.4 M normalized pixels across a rounding
+# boundary, and Adam's lr * g / |g| carries that into the next steps (in
+# f32 on the CPU the state after three steps already differs by 1.3e-3,
+# tests/test_torch_distributed.py). The per-step mean loss is held to:
+DP_LOSS_RTOL = 1e-2
+DP_EVAL_ATOL = 1e-4  # the same state's dataset metrics, 1 vs 2 ranks
+# one step's gradient, 2 ranks vs 1, of its largest element: 8 bf16 ulps
+# (2^-5). The batch statistics of a sum split across ranks differ in f32
+# by ~1e-3 in the most cancelling channels, which moves 2^-8 roundings of
+# the normalized bf16 activations; the card read 1.27e-2 for the first
+# moment and 7.4e-3 for the second.
+DP_MOMENT_TOL = 2.0 ** -5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(mode, spec, world, local_rank):
+    """``world`` processes of ``chip_smoke.py --dp-worker mode spec`` in
+    the torchrun environment; waits for all, echoes their output, raises
+    if one fails; returns each rank's result dict."""
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(local_rank(rank)), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-worker", mode,
+             spec], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        print("".join(f"[dp r{rank}]  {line}\n" for line in out.splitlines()),
+              end="", flush=True)
+        if p.returncode != 0:
+            raise RuntimeError(f"dp worker {mode} rank {rank} exited "
+                               f"{p.returncode}")
+    with open(spec) as f:
+        base = json.load(f)["out"]
+    res = []
+    for rank in range(world):
+        with open(f"{base}.{rank}.json") as f:
+            res.append(json.load(f))
+    return res
+
+
+def first_batch(tr):
+    loader = tr.make_loader(train=True)
+    loader.start()
+    try:
+        host = loader.next()
+    finally:
+        loader.stop()
+        if hasattr(loader, "close"):
+            loader.close()
+    host.pop("cursor", None)
+    return tr.device_batch(host)
+
+
+def collective_counts(step, reps=3, warmup=2):
+    """torch.profiler over ``reps`` steps: per step, the collectives the
+    host issued (c10d's ``nccl:``/``gloo:`` ops) and the device kernels
+    whose name says NCCL, each with its device ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    ops = collections.Counter(e.name for e in prof.events()
+                              if e.name.startswith(("nccl:", "gloo:")))
+    kern, kern_us = collections.Counter(), 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "nccl" in e.name.lower():
+            kern[e.name[:60]] += 1
+            kern_us += e.time_range.end - e.time_range.start
+    return ({k: v / reps for k, v in ops.items()},
+            {k: v / reps for k, v in kern.items()}, kern_us / 1e3 / reps)
+
+
+def dp_worker(mode, spec_path):
+    """One rank of phase 11 (``--dp-worker``): 'nccl' is cli.train
+    --distributed at world 1 with the DP step timed and profiled first;
+    'gloo' is a rank of the two-rank run on one card (gloo between CUDA
+    tensors): fit, evaluate_dataset, the state's digest."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from uresnet_tpu_torch import load_config
+    from uresnet_tpu_torch.cli import train
+    from uresnet_tpu_torch.engine.evaluator import evaluate_dataset
+    from uresnet_tpu_torch.engine.trainer import Trainer
+    from uresnet_tpu_torch.ops.cuda import conv2d as fused_mod
+    from uresnet_tpu_torch.parallel import mesh
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    cfg = load_config(spec["cfg"], spec["overrides"])
+    # built before the group exists: the one-process step of this process
+    plain = Trainer(cfg, device="cuda:0") if mode == "nccl" else None
+    dev = mesh.init_distributed(
+        "cuda", backend=None if mode == "nccl" else "gloo")
+    rank = dist.get_rank()
+    out = {"rank": rank, "pid": os.getpid(), "backend": dist.get_backend(),
+           "device": str(dev)}
+    tr = Trainer(cfg, device=dev)
+    if mode == "nccl":
+        steps = {}
+        for name, t in (("plain", plain), ("dp", tr)):
+            state, batch = [t.init_state()], first_batch(t)
+
+            def step(_=None, t=t, state=state, batch=batch):
+                state[0], m = t.train_step_light(state[0], batch)
+                return m
+
+            steps[name] = step
+        # in turns: one process, DP, DP, one process
+        times = collections.defaultdict(list)
+        for name in ("plain", "dp", "dp", "plain"):
+            times[name].append(time_ms(steps[name], reps=10, warmup=3))
+        out["t_plain"], out["t_step"] = times["plain"], times["dp"]
+        out["ops"], out["kernels"], out["kernel_ms"] = collective_counts(
+            steps["dp"])
+        del steps, plain
+        torch.cuda.empty_cache()
+        # the CLI joins the live group and shuts it down at its end
+        _, out["launches"], _ = counted(fused_mod, lambda: run_main(
+            train, [spec["cfg"], *spec["overrides"], *spec["cli"],
+                    "--device", "cuda", "--distributed"], "dp"))
+    else:
+        ts, _ = tr.fit(iterations=DP_GLOO_STEPS, log=False)
+        out["eval"], out["launches"], _ = counted(
+            fused_mod, lambda: evaluate_dataset(tr, ts))
+        h = hashlib.sha256()
+        for t in (*ts.model.parameters(), *ts.model.buffers(),
+                  *ts.opt.mu.values(), *ts.opt.nu.values()):
+            h.update(t.detach().cpu().numpy().tobytes())
+        out["digest"] = h.hexdigest()
+        mesh.shutdown()
+    with open(f"{spec['out']}.{rank}.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def log_rows(log_dir, name="train"):
+    with open(os.path.join(log_dir, f"{name}_metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def losses_agree(got, want, what):
+    """Per-step logged losses of two runs (same steps) within
+    DP_LOSS_RTOL; returns the largest relative difference."""
+    if [r["step"] for r in got] != [r["step"] for r in want]:
+        raise AssertionError(f"{what}: logged steps {[r['step'] for r in got]}"
+                             f" vs {[r['step'] for r in want]}")
+    rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+              for a, b in zip(got, want))
+    if not (np.isfinite(rel) and rel <= DP_LOSS_RTOL):
+        raise AssertionError(f"{what}: losses {[a['loss'] for a in got]} vs "
+                             f"{[b['loss'] for b in want]} (rtol "
+                             f"{DP_LOSS_RTOL})")
+    return rel
+
+
+def ckpt_diffs(path_a, path_b):
+    """Two checkpoints of one model: the same leaves, shapes and dtypes,
+    finite, the same step and key (raises otherwise); returns the largest
+    difference per kind: params absolute, BN state of max(|leaf|, 1), Adam
+    moments of the kind's largest element."""
+    diffs, top = collections.defaultdict(float), collections.defaultdict(float)
+    with np.load(path_a) as a, np.load(path_b) as b:
+        if set(a.files) != set(b.files):
+            raise AssertionError(f"{path_a}: checkpoint leaves differ")
+        for k in a.files:
+            if k == "meta/data_cursor":  # rank 0's own shard's position
+                continue
+            x, y = a[k].astype(np.float64), b[k].astype(np.float64)
+            if (a[k].shape != b[k].shape or a[k].dtype != b[k].dtype
+                    or not np.isfinite(x).all()):
+                raise AssertionError(f"checkpoint leaf {k}: {a[k].shape} "
+                                     f"{a[k].dtype} vs {b[k].shape} "
+                                     f"{b[k].dtype}, or not finite")
+            if k.startswith(("meta/", "train_state/key")) or "opt/step" in k:
+                if not np.array_equal(x, y):
+                    raise AssertionError(f"{k}: {a[k]} vs {b[k]}")
+                continue
+            kind = "/".join(k.split("/")[1:3 if "/opt/" in k else 2])
+            d = float(np.abs(x - y).max())
+            if kind == "model_state":
+                d /= max(np.abs(y).max(), 1.0)
+            diffs[kind] = max(diffs[kind], d)
+            top[kind] = max(top[kind], float(np.abs(y).max()))
+    return {k: v / top[k] if k.startswith("opt/") else v
+            for k, v in diffs.items()}
+
+
+def dp_phase(fused_mod, card, dev, t_step7):
+    """Phase 11: data parallelism at the flagship width (see the module
+    docstring). Returns the world-1 DP step's ms."""
+    from uresnet_tpu_torch import load_config
+    from uresnet_tpu_torch.cli import train
+    from uresnet_tpu_torch.data.loader import BatchLoader
+    from uresnet_tpu_torch.engine.evaluator import evaluate_dataset
+    from uresnet_tpu_torch.engine.trainer import Trainer
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    cfg_path = os.path.join(WORK, "dp.json")
+    with open(cfg_path, "w") as f:
+        json.dump(DP_CFG, f)
+    train_file = os.path.join(WORK, "train.usef")  # phase 7's 256 events
+    n_val = TRAIN_EVENTS
+    base = [f"data.input_files={train_file}", "data.synthetic=false"]
+
+    def run_dirs(name):
+        d = os.path.join(WORK, name)
+        return [f"train.checkpoint_dir={d}/ckpt", f"train.log_dir={d}/log"], d
+
+    # 11a. cli.train --distributed at world 1: NCCL on cuda:0
+    cli = ["train.summary_iter=1", "train.checkpoint_iter=0",
+           f"train.val_iter={DP_STEPS}", "train.val_exact=true",
+           "--iterations", str(DP_STEPS)]
+    dirs, d_nccl = run_dirs("dp_nccl")
+    spec = os.path.join(WORK, "dp_nccl_spec.json")
+    with open(spec, "w") as f:
+        json.dump({"cfg": cfg_path, "overrides": base + dirs, "cli": cli,
+                   "out": os.path.join(WORK, "dp_nccl")}, f)
+    (w,) = spawn_ranks("nccl", spec, 1, lambda r: 0)
+    if w["backend"] != "nccl" or w["device"] != "cuda:0":
+        raise AssertionError(f"world-1 run on {w['backend']} {w['device']}")
+    n_batches = -(-n_val // DP_CFG["data"]["batch_size"])
+    expect_launches(w["launches"], n_batches)
+    dirs1, d_one = run_dirs("dp_one")
+    run_cli(train, [cfg_path, *base, *dirs1, *cli, "--device", DEVICE],
+            tag="dp")
+    rel = losses_agree(log_rows(f"{d_nccl}/log"), log_rows(f"{d_one}/log"),
+                       "world-1 DP vs one process")
+    val = log_rows(f"{d_nccl}/log", "val")
+    if [v["n_events"] for v in val] != [n_val]:
+        raise AssertionError(f"DP val_exact {val}")
+    n_ar = w["ops"].get("nccl:all_reduce", 0)
+    if n_ar < 1:
+        raise AssertionError(f"no NCCL all-reduce in the DP step: {w['ops']}")
+    print(f"[dp]      world 1, NCCL on {w['device']}: {DP_STEPS} cli.train "
+          f"--distributed steps, losses within {rel:.2e} of the one-process "
+          f"run (rtol {DP_LOSS_RTOL}); val_exact over {n_val} events with "
+          f"{w['launches']['tensor_core']} tensor-core launches (= 44 x "
+          f"{n_batches} local batches)", flush=True)
+    print(f"[dp]      per DP step: host collectives {w['ops']}, NCCL device "
+          f"kernels {w['kernels'] or 0} ({w['kernel_ms']:.3f} ms)", flush=True)
+    t_dp, t_plain = np.median(w["t_step"]), np.median(w["t_plain"])
+    print(f"[dp]      B=32 512^2 bf16 train_step_light under --distributed "
+          f"(world 1), in turns with the same process's one-process step: "
+          f"DP {w['t_step'][0]:.2f}, {w['t_step'][1]:.2f} ms; one process "
+          f"{w['t_plain'][0]:.2f}, {w['t_plain'][1]:.2f} ms: the collectives "
+          f"cost {t_dp - t_plain:+.2f} ms ({(t_dp / t_plain - 1) * 100:+.2f}%); "
+          f"DP = {32 / t_dp * 1e3:.1f} img/s; phase 7's one-process step "
+          f"{t_step7:.2f} ms | {card}", flush=True)
+
+    # 11b. two ranks on this one card through gloo, global batch 32
+    gl = ["train.summary_iter=1", "train.checkpoint_iter=1",
+          "train.val_iter=0"]
+    dirs, d_two = run_dirs("dp_gloo")
+    spec = os.path.join(WORK, "dp_gloo_spec.json")
+    with open(spec, "w") as f:
+        json.dump({"cfg": cfg_path, "overrides": base + dirs + gl,
+                   "out": os.path.join(WORK, "dp_gloo")}, f)
+    r0, r1 = spawn_ranks("gloo", spec, 2, lambda r: 0)
+    if r0["digest"] != r1["digest"]:
+        raise AssertionError("the two ranks' train states differ")
+    # one process on the rank-major concatenation of the two shards'
+    # batches: the global batch whose rows the ranks' augmentation draws for
+    dirs1, d_ref = run_dirs("dp_gloo_ref")
+    tr1 = Trainer(load_config(cfg_path, base + dirs1 + gl), device=dev)
+    ts1, ref_rows = tr1.init_state(), []
+    shards = [BatchLoader(tr1.cfg.data, num_class=3, shard=(r, 2))
+              for r in (0, 1)]
+    for step in range(1, DP_GLOO_STEPS + 1):
+        b = [s._make_batch() for s in shards]
+        for x in b:
+            x.pop("cursor")
+        ts1, m = tr1.train_step(ts1, tr1.device_batch(
+            {k: np.concatenate([b[0][k], b[1][k]]) for k in b[0]}))
+        ref_rows.append({"step": step, "loss": float(m["loss"])})
+        tr1.save(ts1, step)
+    rel = losses_agree(log_rows(f"{d_two}/log"), ref_rows,
+                       "two gloo ranks vs one process")
+    # rank 0's checkpoints, leaf by leaf, against the one-process run's.
+    # After the first step: BN running stats within 1e-3 of max(|leaf|, 1),
+    # Adam's moments (the gradient and its square) within DP_MOMENT_TOL of
+    # their largest element, params within 2 lr (Adam's first step moves
+    # an element by lr * g / |g|, so a near-zero gradient element may go
+    # either way). After the last the differences are reported:
+    # DP_LOSS_RTOL's chaos.
+    lr = DP_CFG["optim"]["lr"]
+    first = ckpt_diffs(f"{d_two}/ckpt/step_{1:08d}.npz",
+                       f"{d_ref}/ckpt/step_{1:08d}.npz")
+    if (first["params"] > 2 * lr or first["model_state"] > 1e-3
+            or first["opt/mu"] > DP_MOMENT_TOL
+            or first["opt/nu"] > DP_MOMENT_TOL):
+        raise AssertionError(f"rank 0's step-1 checkpoint vs one process: "
+                             f"{first}")
+    ck = f"step_{DP_GLOO_STEPS:08d}.npz"
+    worst = ckpt_diffs(f"{d_two}/ckpt/{ck}", f"{d_ref}/ckpt/{ck}")
+    # the same state evaluated by one process: rank 0's checkpoint
+    ev1, c1, _ = counted(fused_mod, lambda: evaluate_dataset(
+        tr1, tr1.restore(f"{d_two}/ckpt/{ck}")[0]))
+    if r0["eval"] != r1["eval"]:
+        raise AssertionError(f"ranks' evaluations differ: {r0['eval']} "
+                             f"{r1['eval']}")
+    S = DP_CFG["data"]["image_size"]
+    for k in ("n_events", "n_pixels", "n_nonzero"):
+        if r0["eval"][k] != ev1[k]:
+            raise AssertionError(f"{k}: 2 ranks {r0['eval'][k]}, 1 rank {ev1[k]}")
+    if r0["eval"]["n_events"] != n_val or r0["eval"]["n_pixels"] != n_val * S * S:
+        raise AssertionError(f"two-rank evaluation {r0['eval']}")
+    d_ev = max(abs(r0["eval"][k] - ev1[k]) for k in ev1)
+    if d_ev > DP_EVAL_ATOL:
+        raise AssertionError(f"two-rank vs one-rank evaluation: {d_ev}")
+    # only rank 0 wrote: each step logged once, one checkpoint, its pid
+    steps = [r["step"] for r in log_rows(f"{d_two}/log")]
+    tb = [f for f in os.listdir(f"{d_two}/log") if f.startswith("events.")]
+    if (steps != list(range(1, DP_GLOO_STEPS + 1))
+            or sorted(os.listdir(f"{d_two}/ckpt")) != ["LATEST"] + [
+                f"step_{i:08d}.npz" for i in range(1, DP_GLOO_STEPS + 1)]
+            or not tb or any(f.split(".")[-2] != str(r0["pid"]) for f in tb)):
+        raise AssertionError(f"writes: steps {steps}, tb {tb}, ckpt "
+                             f"{os.listdir(f'{d_two}/ckpt')}")
+    per_rank = -(-n_val // 2 // 16)
+    for r in (r0, r1):
+        expect_launches(r["launches"], per_rank)
+    expect_launches(c1, n_batches)
+    print(f"[dp]      two ranks on one card, gloo between CUDA tensors, "
+          f"{DP_GLOO_STEPS} steps at global batch 32 (16 rows a rank): losses "
+          f"within {rel:.2e} of one process; replicas bit-equal; rank 0's "
+          f"checkpoints vs one process after step 1 "
+          f"{({k: f'{v:.2e}' for k, v in first.items()})} and step "
+          f"{DP_GLOO_STEPS} {({k: f'{v:.2e}' for k, v in worst.items()})} "
+          f"(params abs, BN state of max(|leaf|, 1), moments of their "
+          f"largest); evaluate_dataset equal "
+          f"on both ranks, n_events {r0['eval']['n_events']:.0f}, n_pixels "
+          f"{r0['eval']['n_pixels']:.0f}, within {d_ev:.2e} of one rank on the "
+          f"same checkpoint; fused launches per rank "
+          f"{[r['launches']['tensor_core'] for r in (r0, r1)]} (= 44 x "
+          f"{per_rank}), one rank {c1['tensor_core']}; only rank 0 wrote",
+          flush=True)
+    print(f"[dp]      phase 11 wall {time.time() - t0:.1f} s | {card}",
+          flush=True)
+    return t_dp
+
+
+# -- phase 12: multi-plane, BASELINE config 3 -------------------------------------
+
+# configs/train_multiplane.yaml (BASELINE config 3): 30 rows = 10 events x
+# 3 planes, augment, 512^2, bf16; its pack flags run canonical
+CONFIG3 = {
+    "model": dict(FLAGSHIP["model"]),
+    "data": {"image_size": 512, "batch_size": 30, "planes": [0, 1, 2],
+             "augment": True, "prefetch_depth": 2, "num_threads": 6,
+             "backend": "auto"},
+    "parallel": {"data": 1},
+    "optim": {"lr": 1.0e-3},
+    "train": {"iterations": 20000},
+}
+MP_EVENTS = 64       # the training file, also its val_exact set
+MP_ANA_EVENTS = 20   # cli.infer: 2 batches of 10 events
+MP_STEPS = 30
+MP_MEM_LIMIT = 72.0  # GiB: run 96 rows without remat below it
+
+
+def step_stats(cfg_path, overrides, card, dev, tag):
+    """train_step_light at a config: (ms, img/s, peak GiB), median of 10."""
+    from uresnet_tpu_torch import load_config
+    from uresnet_tpu_torch.engine.trainer import Trainer
+
+    tr = Trainer(load_config(cfg_path, overrides), device=dev)
+    state = [tr.init_state()]
+    batch = first_batch(tr)
+
+    def step(_=None):
+        state[0], m = tr.train_step_light(state[0], batch)
+        return m
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time_ms(step, reps=10, warmup=3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = float(step()["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"{tag}: non-finite loss {loss}")
+    B = tr.cfg.data.batch_size
+    print(f"[mp]      {tag}: B={B} rows, remat {tr.cfg.model.remat}: "
+          f"{t:.2f} ms/step = {B / t * 1e3:.1f} img/s, peak memory "
+          f"{peak:.3f} GiB | {card}", flush=True)
+    del state, batch, tr
+    torch.cuda.empty_cache()
+    return t, peak
+
+
+def mp_phase(fused_mod, card, dev):
+    """Phase 12: BASELINE config 3 (see the module docstring)."""
+    from uresnet_tpu_torch import generate_file
+    from uresnet_tpu_torch.cli import infer, train
+
+    t0 = time.time()
+    cfg_path = os.path.join(WORK, "config3.json")
+    with open(cfg_path, "w") as f:
+        json.dump(CONFIG3, f)
+    S, planes = 512, (0, 1, 2)
+    mp_file = generate_file(os.path.join(WORK, "mp.usef"), MP_EVENTS,
+                            seed=SEED + 31, shape=(S, S), planes=planes)
+    d = os.path.join(WORK, "mp")
+    base = [f"data.input_files={mp_file}", "data.synthetic=false",
+            f"train.checkpoint_dir={d}/ckpt", f"train.log_dir={d}/log"]
+    _, counts, wall = counted(fused_mod, lambda: run_cli(train, [
+        cfg_path, *base, "train.summary_iter=10", "train.checkpoint_iter=0",
+        f"train.val_iter={MP_STEPS}", "train.val_exact=true", "--iterations",
+        str(MP_STEPS), "--device", DEVICE], tag="mp"))
+    rows = log_rows(f"{d}/log")
+    val = log_rows(f"{d}/log", "val")
+    n_val_batches = -(-MP_EVENTS // 10)
+    if ([r["step"] for r in rows] != list(range(10, MP_STEPS + 1, 10))
+            or not all(np.isfinite(r["loss"]) for r in rows)):
+        raise AssertionError(f"config 3 training log {rows}")
+    if (len(val) != 1 or val[0]["n_events"] != MP_EVENTS
+            or val[0]["n_pixels"] != MP_EVENTS * 3 * S * S):
+        raise AssertionError(f"config 3 val_exact {val}")
+    expect_launches(counts, n_val_batches)
+    print(f"[mp]      config 3: {MP_STEPS} cli.train steps of 30 rows (10 "
+          f"events x 3 planes, augment) in {wall:.2f} s wall, losses "
+          f"{[round(r['loss'], 4) for r in rows]}; val_exact n_events "
+          f"{val[0]['n_events']:.0f}, n_pixels {val[0]['n_pixels']:.0f} "
+          f"(= {MP_EVENTS} x 3 x {S}^2), miou {val[0]['miou']:.6f}, "
+          f"{counts['tensor_core']} tensor-core launches (= 44 x "
+          f"{n_val_batches})", flush=True)
+
+    # step time and memory: 30 rows, the literal 96, and batch 64 of plane 2
+    t30, p30 = step_stats(cfg_path, base, card, dev, "config 3")
+    remat = "false" if p30 * 3.2 < MP_MEM_LIMIT else "block"
+    step_stats(cfg_path, base + ["data.batch_size=96", f"model.remat={remat}"],
+               card, dev, f"config 3 at 32 events (96 rows; 30-row peak x 3.2 "
+               f"= {p30 * 3.2:.1f} GiB {'<' if remat == 'false' else '>='} "
+               f"{MP_MEM_LIMIT})")
+    step_stats(os.path.join(WORK, "flagship.json"),
+               [f"data.input_files={os.path.join(WORK, 'train.usef')}",
+                "data.synthetic=false", "data.batch_size=64"],
+               card, dev, "plane 2 at batch 64")
+
+    # serving 3-plane events from the trained checkpoint
+    ckpt = os.path.join(d, "ckpt", f"step_{MP_STEPS:08d}.npz")
+    ev3 = generate_file(os.path.join(WORK, "mp_ana.usef"), MP_ANA_EVENTS,
+                        seed=SEED + 32, shape=(S, S), planes=planes)
+    argv = [cfg_path, "--checkpoint", ckpt, "--input", ev3, "--device", DEVICE]
+    z, st, cnt = {}, {}, {}
+    for mode, extra in (("sparse", []), ("dense", ["--export", "dense"])):
+        z[mode], st[mode], cnt[mode], _ = serve_counted(
+            fused_mod, infer, argv + extra,
+            os.path.join(WORK, f"mp_{mode}.npz"), MP_ANA_EVENTS, 3,
+            "tensor_core", batch_events=10)
+    identical(z["dense"], z["sparse"], "3-plane dense vs sparse export")
+    if set(np.unique(z["sparse"]["plane_id"])) != set(planes):
+        raise AssertionError("3-plane export misses a plane")
+    m, c, _ = counted(fused_mod, lambda: run_cli(
+        infer, argv + ["--metrics-only"], tag="mp"))
+    expect_launches(c, -(-MP_ANA_EVENTS // 10))
+    if (m["n_events"] != MP_ANA_EVENTS
+            or m["n_pixels"] != MP_ANA_EVENTS * 3 * S * S
+            or abs(m["miou"] - st["sparse"]["miou"]) > 1e-9):
+        raise AssertionError(f"3-plane --metrics-only {m}")
+    print(f"[mp]      cli.infer on {MP_ANA_EVENTS} 3-plane events: sparse and "
+          f"dense exports of {len(z['sparse']['scores'])} charge pixels "
+          f"bit-equal, --metrics-only n_pixels {m['n_pixels']:.0f} (= "
+          f"{MP_ANA_EVENTS} x 3 x {S}^2), miou {m['miou']!r}; tensor-core "
+          f"launches {[cnt['sparse']['tensor_core'], cnt['dense']['tensor_core'], c['tensor_core']]}"
+          f" (= 44 x 2 each)", flush=True)
+    print(f"[mp]      phase 12 wall {time.time() - t0:.1f} s | {card}",
+          flush=True)
+    return t30, p30
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch")
@@ -1798,7 +2338,7 @@ def main():
                      os.path.join(WORK, "profile.txt"), card)
 
     # 7. the training path; 7b. the f32 weight gradient on the card
-    train_phase(cfg_path, cfg, fused_mod, card, dev)
+    t_step7, _ = train_phase(cfg_path, cfg, fused_mod, card, dev)
     dw_phase(dev)
 
     # 8. the analysis surface on phase 4's checkpoint and events
@@ -1809,6 +2349,12 @@ def main():
 
     # 10. the serving artifact and the checkpoint lifecycle
     artifact_phase(cfg_path, cfg, events, fused_mod, card, dev, t_auto)
+
+    # 11. data parallelism: world 1 on NCCL, two ranks through gloo
+    dp_phase(fused_mod, card, dev, t_step7)
+
+    # 12. BASELINE config 3, multi-plane
+    mp_phase(fused_mod, card, dev)
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "uresnet_tpu")
                     or m.startswith(("jax.", "jaxlib", "uresnet_tpu.")))
@@ -1836,6 +2382,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"] and len(sys.argv) == 4:
+        raise SystemExit(dp_worker(*sys.argv[2:4]))
     KERNELS_ONLY = sys.argv[1:] == ["--kernels-only"]
     if sys.argv[1:] not in ([], ["--kernels-only"]):
         raise SystemExit(f"usage: {sys.argv[0]} [--kernels-only]")

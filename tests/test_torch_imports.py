@@ -65,3 +65,11 @@ def test_no_import_names_the_jax_package(path):
     bad = [n for n in _imported_names(path)
            if n.split(".")[0] in ("uresnet_tpu", "jax", "jaxlib")]
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_walk_covers_parallel():
+    """The walk above reaches the data-parallel package, so its modules are
+    imported in the fresh interpreter and their AST checked too."""
+    assert {"uresnet_tpu_torch.parallel",
+            "uresnet_tpu_torch.parallel.mesh"} <= set(MODULES)
+    assert os.path.join(PKG, "parallel", "mesh.py") in _port_files()

@@ -228,21 +228,31 @@ def test_freeze_prunes_and_keeps(jax_run):
             assert not torch.equal(p.detach(), before[k]), k
 
 
-@pytest.mark.parametrize("field,value", [
-    ("parallel.data", 2), ("parallel.spatial", 2), ("parallel.model", 2)])
-def test_refuses_unported(tmp_path, field, value):
+@pytest.mark.parametrize("field,value,error,match", [
+    pytest.param("parallel.data", 2, ValueError, "needs 2 devices, have 1",
+                 id="parallel.data-2"),
+    pytest.param("parallel.spatial", 2, NotImplementedError, "ROADMAP",
+                 id="parallel.spatial-2"),
+    pytest.param("parallel.model", 2, NotImplementedError, "ROADMAP",
+                 id="parallel.model-2")])
+def test_refuses_unported(tmp_path, field, value, error, match):
+    """Spatial and model parallelism are not ported; a data axis other
+    than the world size (1 in a process with no group) is the JAX mesh's
+    error: a run never goes quietly on fewer devices."""
     cfg = tiny_cfg(tmp_path)
     section, name = field.split(".")
     cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(
         getattr(cfg, section), **{name: value})})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         Trainer(cfg, device="cpu")
 
 
-def test_cli_train_end_to_end(tmp_path, capsys):
+def test_cli_train_end_to_end(tmp_path, capsys, monkeypatch):
     """The tiny CPU run of the verify notes: falling loss, checkpoints,
-    LATEST, a resume that continues the step count; the unported
-    --distributed exits 2 (--profile: tests/test_torch_profiling.py)."""
+    LATEST, a resume that continues the step count; --distributed without
+    the torchrun environment exits 2 (--profile:
+    tests/test_torch_profiling.py; a torchrun launch:
+    tests/test_torch_distributed.py)."""
     cfg = tmp_path / "tiny.json"
     cfg.write_text(json.dumps({
         "model": {"depth": 2, "base_filters": 4, "compute_dtype": "float32"},
@@ -264,10 +274,14 @@ def test_cli_train_end_to_end(tmp_path, capsys):
                            "--iterations", "4", "train.summary_iter=2"]) == 0
     assert tckpt.checkpoint_step(tckpt.latest_checkpoint(
         str(tmp_path / "ckpt"))) == 16
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
     with pytest.raises(SystemExit) as e:
         cli_train.main([str(cfg), "--distributed"])
     assert e.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "needs the torchrun environment" in err and "RANK" in err
 
 
 def test_sigterm_checkpoints_and_resumes(tmp_path):

@@ -2,6 +2,8 @@
 
     python -m uresnet_tpu_torch.cli.train CONFIG [KEY=value ...] \\
         [--resume] [--iterations N] [--device cuda] [--profile DIR]
+    torchrun --nproc-per-node N -m uresnet_tpu_torch.cli.train CONFIG \\
+        ... --distributed
 
 A config file (YAML needs PyYAML; JSON and reference-style KEY-value files
 do not) plus ``section.field=value`` or reference-style ``KEY=value``
@@ -9,14 +11,22 @@ overrides. Checkpoints are written in the JAX package's npz layout, so
 either package resumes or serves them. ``--profile DIR`` trains the first
 summary window only, inside a ``torch.profiler`` trace written to DIR
 (engine/profiling.py), and exits 0.
+
+``--distributed`` joins the process group of a ``torchrun`` launch (one
+process per device, parallel/mesh.py): NCCL on ``cuda:LOCAL_RANK``, or
+gloo with ``--device cpu``. Without the torchrun environment it exits 2;
+it never falls back to one process. Rank 0 alone writes logs,
+checkpoints and the ``--profile`` trace.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 from uresnet_tpu_torch.config import Config, apply_overrides, load_config
 from uresnet_tpu_torch.engine.trainer import Trainer
+from uresnet_tpu_torch.parallel import mesh
 
 
 def main(argv=None):
@@ -31,7 +41,9 @@ def main(argv=None):
                    help="torch device to train on (default: cuda; the CPU "
                         "only when asked with --device cpu)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process training (not ported yet)")
+                   help="data-parallel training, one process per device, "
+                        "launched by torchrun (NCCL on cuda:LOCAL_RANK, "
+                        "gloo with --device cpu)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a torch.profiler trace of the first "
                         "summary window into DIR")
@@ -42,9 +54,6 @@ def main(argv=None):
         if "=" not in tok or tok.startswith("-"):
             p.error(f"unrecognized argument: {tok}")
         args.overrides.append(tok)
-    if args.distributed:
-        p.error("--distributed is not ported yet (ROADMAP.md, modules to "
-                "port)")
 
     overrides = list(args.overrides)
     if args.config and "=" in args.config:
@@ -53,16 +62,35 @@ def main(argv=None):
     cfg = (load_config(args.config, overrides) if args.config
            else apply_overrides(Config(), overrides))
 
-    trainer = Trainer(cfg, device=args.device)
-    print(f"device: {trainer.device}", flush=True)
+    if not args.distributed:
+        return _train(cfg, args, args.device)
+    try:
+        device = mesh.init_distributed(args.device)
+    except RuntimeError as e:
+        p.error(str(e))
+    try:
+        return _train(cfg, args, device)
+    finally:
+        mesh.shutdown()
+
+
+def _train(cfg, args, device) -> int:
+    trainer = Trainer(cfg, device=device)
+    m = trainer.mesh
+    print(f"device: {trainer.device}"
+          + (f" rank: {m.rank} world: {m.world}" if m.group is not None
+             else ""), flush=True)
     if args.profile:
         from uresnet_tpu_torch.engine.profiling import trace
 
-        with trace(args.profile, device=trainer.device):
+        # rank 0 alone traces
+        with (trace(args.profile, device=trainer.device) if m.leader
+              else contextlib.nullcontext()):
             trainer.fit(iterations=min(args.iterations or cfg.train.summary_iter,
                                        cfg.train.summary_iter),
                         resume=args.resume)
-        print(f"profile trace written to {args.profile}", flush=True)
+        if m.leader:
+            print(f"profile trace written to {args.profile}", flush=True)
         return 0
     _, metrics = trainer.fit(iterations=args.iterations, resume=args.resume)
     print("final:", {k: round(v, 5) for k, v in metrics.items()}, flush=True)

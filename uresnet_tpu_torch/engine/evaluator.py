@@ -5,7 +5,9 @@ uresnet_tpu/engine/evaluator.py).
 forward and writes per-pixel softmax scores at the charge pixels (npz), or
 the reference-style per-class score planes (USEF), with dataset metrics.
 ``evaluate_dataset`` is the held-out metric pass, exactly once over the
-dataset or over k sampled batches.
+dataset or over k sampled batches, sharded over the ranks under data
+parallelism. ``run_inference`` is one process: the rank that calls it
+scores the whole file.
 
 Every forward here is the BN-folded one (engine/export.py
 ``build_logits_fn``), folded once per pass, so every eligible conv runs the
@@ -47,9 +49,11 @@ from uresnet_tpu_torch.data.pipeline import crop_or_pad_coords, densify_batch
 from uresnet_tpu_torch.data.prefetch import device_prefetch
 from uresnet_tpu_torch.engine.export import build_logits_fn
 from uresnet_tpu_torch.engine.losses import softmax_xent_per_pixel
-from uresnet_tpu_torch.engine.metrics import (metrics_from_counts,
+from uresnet_tpu_torch.engine.metrics import (loss_from_counts,
+                                              metrics_from_counts,
                                               reduce_counts,
                                               segmentation_counts)
+from uresnet_tpu_torch.parallel.mesh import all_reduce_counts
 
 
 def score_plane_id(plane_id: int, cls: int, num_class: int) -> int:
@@ -755,10 +759,13 @@ def evaluate_dataset(trainer, ts, *,
     (masked, under ``train.loss_normalize``) and ``n_events``.
 
     ``num_batches=k``: k batches off the cycling loader, per-batch metric
-    means, for quick spot checks.
+    means of the global batch, for quick spot checks.
 
-    One process: the JAX package's shard count and rank are 1 and 0 here
-    (data parallelism is not ported)."""
+    Under data parallelism each rank reads its shard (every world-th
+    event) and runs the same, host-independent number of batches; a
+    shorter shard masks more rows. The counts are summed over the ranks,
+    so every rank returns the same dict, with ``n_events`` the files'
+    event count."""
     logits_fn = build_logits_fn(trainer.cfg, ts.model)
     loader = trainer.make_loader(train=False)
     _say_decoder(loader)
@@ -778,17 +785,24 @@ def evaluate_dataset(trainer, ts, *,
 
     cfgd = trainer.cfg.data
     n_planes = len(cfgd.planes)
-    epb = max(1, cfgd.batch_size // n_planes)
+    mesh = trainer.mesh
+    shard_count, rank = mesh.data, mesh.rank
+    epb_local = max(1, cfgd.batch_size // n_planes // shard_count)
+    # host-independent totals (the loader shards round-robin): every rank
+    # runs the same number of steps, the shorter shards mask more rows
     n_total = loader.total_events()
-    n_batches = max(1, -(-n_total // epb))
+    n_local = n_total // shard_count + (1 if rank < n_total % shard_count
+                                        else 0)
+    n_max_local = -(-n_total // shard_count)
+    n_batches = max(1, -(-n_max_local // epb_local))
     loader.start()
     agg_counts: Dict[str, np.ndarray] = {}
     try:
         for k in range(n_batches):
             batch = loader.next()
             batch.pop("cursor", None)
-            valid_events = min(max(n_total - k * epb, 0), epb)
-            batch["row_valid"] = (np.arange(epb * n_planes) // n_planes
+            valid_events = min(max(n_local - k * epb_local, 0), epb_local)
+            batch["row_valid"] = (np.arange(epb_local * n_planes) // n_planes
                                   < valid_events).astype(np.float32)
             counts = _count_step(trainer, logits_fn,
                                  trainer.device_batch(batch))
@@ -798,16 +812,13 @@ def evaluate_dataset(trainer, ts, *,
     finally:
         _close(loader)
 
+    if mesh.group is not None:
+        agg_counts = all_reduce_counts(agg_counts, mesh.group, trainer.device)
     out = metrics_from_counts(agg_counts)
     # model-free exactness witnesses: a double-counted or unmasked row
     # shows here even when near-tie argmax flips hide it in the metrics
     out["n_pixels"] = float(agg_counts["n_pixels"])
     out["n_nonzero"] = float(agg_counts["n_nonzero"])
-    if trainer.cfg.train.loss_normalize == "weight_sum":
-        out["loss"] = float(agg_counts["loss_num"]
-                            / max(agg_counts["weight_sum"], 1e-6))
-    else:  # 'mean' over the valid pixels
-        out["loss"] = float(agg_counts["loss_num"]
-                            / max(agg_counts["n_pixels"], 1.0))
+    out["loss"] = loss_from_counts(agg_counts, trainer.cfg.train.loss_normalize)
     out["n_events"] = float(n_total)
     return out

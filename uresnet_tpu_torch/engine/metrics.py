@@ -92,6 +92,14 @@ def reduce_counts(counts: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return out
 
 
+def loss_from_counts(counts: Dict[str, Any], normalize: str = "mean") -> float:
+    """The weighted xent of aggregated ``loss_num`` / ``weight_sum`` sums:
+    'mean' over the counted pixels, 'weight_sum' over the weights."""
+    if normalize == "weight_sum":
+        return float(counts["loss_num"] / max(counts["weight_sum"], 1e-6))
+    return float(counts["loss_num"] / max(counts["n_pixels"], 1.0))
+
+
 def metrics_from_counts(counts: Dict[str, Any]) -> Dict[str, float]:
     """All-pixel accuracy, nonzero-pixel accuracy, per-class IoU and mIoU
     from aggregated (pred, true) confusion sums (empty union -> IoU 1.0)."""

@@ -1,4 +1,4 @@
-"""The training engine (port of uresnet_tpu/engine/trainer.py), one device.
+"""The training engine (port of uresnet_tpu/engine/trainer.py).
 
 A train step densifies a sparse batch on the device (with the in-scatter
 flips/rot90 when ``data.augment``), runs the canonical U-ResNet forward in
@@ -18,10 +18,22 @@ Adam, but draws its own augmentation stream.
 Validation samples ``val_batches`` held-out batches through ``eval_step``
 over the BN-folded forward, or with ``train.val_exact`` runs the
 exactly-once ``evaluate_dataset`` (engine/evaluator.py). 2D and 3D
-(``model.dims``) train alike. Not ported (they raise): data/spatial/model
-parallelism — ROADMAP.md. The packed TPU layouts (``model.pack``,
+(``model.dims``) train alike. The packed TPU layouts (``model.pack``,
 ``train.packed_loss``) are accepted and run canonical;
 ``steps_per_dispatch = K`` runs K plain steps per loop turn.
+
+Data parallelism (parallel/mesh.py): one process per device, each with a
+replica of the train state and ``1/world`` of the global batch
+(``data.batch_size`` stays the global size; the loader reads every
+world-th event). A DP step equals the one-process step on the rank-major
+concatenation of the ranks' batches: BN statistics are the global
+batch's, the augmentation decisions are drawn for the global batch and
+each rank applies its rows, the gradients (and the logged loss) are
+averaged over the ranks before the clip and Adam, and the summary and
+eval metrics come from confusion counts summed over the ranks. Rank 0
+alone writes logs, checkpoints and traces; a SIGTERM on any rank stops
+every rank after the same step. Spatial and model parallelism raise
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -37,23 +49,30 @@ import torch
 
 from uresnet_tpu_torch.config import Config
 from uresnet_tpu_torch.data.loader import make_batch_loader
-from uresnet_tpu_torch.engine.logging import MetricsLogger
+from uresnet_tpu_torch.engine.logging import MetricsLogger, NullLogger
 from uresnet_tpu_torch.data.device_pipeline import (densify_on_device,
                                                     draw_decisions)
 from uresnet_tpu_torch.data.prefetch import device_prefetch
 from uresnet_tpu_torch.engine import checkpoint as ckpt
 from uresnet_tpu_torch.engine.augment import augment_batch
 from uresnet_tpu_torch.engine.export import build_logits_fn
-from uresnet_tpu_torch.engine.losses import weighted_softmax_xent
-from uresnet_tpu_torch.engine.metrics import segmentation_metrics
+from uresnet_tpu_torch.engine.losses import (softmax_xent_per_pixel,
+                                             weighted_softmax_xent)
+from uresnet_tpu_torch.engine.metrics import (loss_from_counts,
+                                              metrics_from_counts,
+                                              reduce_counts,
+                                              segmentation_counts,
+                                              segmentation_metrics)
 from uresnet_tpu_torch.engine.optim import (AdamState, adam_init, adam_update,
                                             freeze_mask)
 from uresnet_tpu_torch.models.convert import (flatten_tree, jax_train_state,
                                               load_jax_train_state)
 from uresnet_tpu_torch.models.fold import KERNEL_BACKENDS
 from uresnet_tpu_torch.models.uresnet import UResNet
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md, modules to port)"
+from uresnet_tpu_torch.parallel.mesh import (all_reduce_counts,
+                                             all_reduce_max, all_reduce_mean,
+                                             all_reduce_sum, broadcast,
+                                             make_mesh)
 
 
 @dataclasses.dataclass
@@ -69,10 +88,16 @@ def _key_seed(key: np.ndarray) -> int:
 
 class Trainer:
     def __init__(self, cfg: Config, *, device="cuda"):
-        for axis in ("data", "spatial", "model"):
-            if getattr(cfg.parallel, axis) > 1:
-                raise NotImplementedError(
-                    f"parallel.{axis} > 1: parallelism {_NOT_PORTED}")
+        # the process group, if any, is the caller's: cli.train
+        # --distributed joins it (parallel/mesh.py init_distributed)
+        self.mesh = make_mesh(cfg.parallel.data, max(1, cfg.parallel.spatial),
+                              max(1, cfg.parallel.model))
+        if cfg.data.batch_size % self.mesh.data:
+            raise ValueError(
+                f"data.batch_size ({cfg.data.batch_size}) must be divisible "
+                f"by the mesh data-axis size ({self.mesh.data}); raise the "
+                f"batch size or set parallel.data to a divisor (e.g. "
+                f"parallel.data=1 for single-device runs)")
         # The JAX trainer's warning for 3D without model.pack is not ported:
         # it is about an XLA tile-padding blowup on the TPU, and the port
         # runs every layout canonical.
@@ -122,21 +147,53 @@ class Trainer:
             nonzero_boost=d.weight_nonzero_boost, decisions=decisions)
 
     def _loss_fn(self, model: UResNet, batch: Dict):
-        """(loss, logits, new BN state) of one batch in train mode."""
-        logits, new_state = model(batch["data"], train=True)
-        loss = weighted_softmax_xent(logits, batch["label"], batch["weight"],
-                                     normalize=self.cfg.train.loss_normalize)
+        """(loss, logits, new BN state) of one batch in train mode.
+
+        Under DP each rank's loss is its term of ``world`` times the global
+        batch's loss, so that the mean of the ranks' losses and gradients
+        is the global loss and its gradient: with 'mean' the local mean
+        (equal shards), with 'weight_sum' the local sum over the global
+        batch's weight sum."""
+        group = self.mesh.group
+        normalize = self.cfg.train.loss_normalize
+        logits, new_state = model(batch["data"], train=True, group=group)
+        if group is not None and normalize == "weight_sum":
+            w = batch["weight"].float()
+            den = all_reduce_sum(w.sum(), group)
+            loss = (torch.sum(w * softmax_xent_per_pixel(logits, batch["label"]))
+                    * self.mesh.data / torch.clamp(den, min=1e-6))
+        else:
+            loss = weighted_softmax_xent(logits, batch["label"],
+                                         batch["weight"], normalize=normalize)
         return loss, logits, new_state
+
+    def _global_counts(self, logits, batch, *, loss_sums=False
+                       ) -> Dict[str, np.ndarray]:
+        """The batch's confusion counts (and with ``loss_sums`` the masked
+        xent sums of engine/evaluator.py), summed over the data group."""
+        counts = {k: v.cpu() for k, v in segmentation_counts(
+            logits, batch["label"], batch["data"],
+            num_class=self.cfg.model.num_class).items()}
+        if loss_sums:
+            w = batch["weight"].float()
+            counts["loss_num"] = torch.sum(
+                w * softmax_xent_per_pixel(logits, batch["label"])).cpu()
+            counts["weight_sum"] = torch.sum(w).cpu()
+        return all_reduce_counts(reduce_counts(counts), self.mesh.group,
+                                 self.device)
 
     def _train_step(self, ts: TrainState, batch: Dict,
                     with_metrics: bool = True) -> Tuple[TrainState, Dict]:
         cfg = self.cfg
+        mesh = self.mesh
         decisions = None
         if cfg.data.augment:
+            # drawn for the global batch; this rank applies its own rows
             gen = torch.Generator(device=self.device)
             gen.manual_seed(_key_seed(ts.key))
             B = next(v for v in batch.values() if torch.is_tensor(v)).shape[0]
-            decisions = draw_decisions(gen, B, cfg.model.dims)
+            decisions = draw_decisions(gen, B * mesh.data, cfg.model.dims)[
+                :, mesh.rank * B:(mesh.rank + 1) * B]
         sparse = "coords" in batch
         batch = self._prepare(batch, decisions if sparse else None)
         if decisions is not None and not sparse:
@@ -148,6 +205,12 @@ class Trainer:
         with torch.enable_grad():
             loss, logits, new_state = self._loss_fn(model, batch)
             grads = torch.autograd.grad(loss, [params[k] for k in trainable])
+        loss = loss.detach()
+        if mesh.group is not None:
+            # one bucket: the gradients and the logged loss, averaged
+            loss = loss.reshape(1).clone()
+            all_reduce_mean([*grads, loss], mesh.group)
+            loss = loss[0]
         new_params, opt = adam_update(
             dict(zip(trainable, grads)), ts.opt,
             {k: p.detach() for k, p in params.items()}, cfg.optim,
@@ -158,8 +221,11 @@ class Trainer:
             flat = dict(model.named_buffers())
             for k, v in flatten_tree(new_state).items():
                 flat[k].data = v
-        metrics = {"loss": loss.detach()}
-        if with_metrics:
+        metrics = {"loss": loss}
+        if with_metrics and mesh.group is not None:
+            metrics.update(metrics_from_counts(
+                self._global_counts(logits.detach(), batch)))
+        elif with_metrics:
             metrics.update(segmentation_metrics(
                 logits.detach(), batch["label"], batch["data"],
                 num_class=cfg.model.num_class))
@@ -181,11 +247,19 @@ class Trainer:
         """The eval metrics and loss of one batch over the BN-folded forward
         (equal to the eval forward). A pass over several batches folds once
         and passes its ``logits_fn`` (engine/export.py ``build_logits_fn``);
-        without one, the model of ``ts`` is folded here."""
+        without one, the model of ``ts`` is folded here. Under DP the
+        metrics are the global batch's, from counts summed over the ranks
+        (host floats)."""
         if logits_fn is None:
             logits_fn = build_logits_fn(self.cfg, ts.model)
         batch = self._prepare(batch)
         logits = logits_fn(batch["data"])
+        if self.mesh.group is not None:
+            counts = self._global_counts(logits, batch, loss_sums=True)
+            metrics = metrics_from_counts(counts)
+            metrics["loss"] = loss_from_counts(
+                counts, self.cfg.train.loss_normalize)
+            return metrics
         metrics = segmentation_metrics(logits, batch["label"], batch["data"],
                                        num_class=self.cfg.model.num_class)
         metrics["loss"] = weighted_softmax_xent(
@@ -202,7 +276,8 @@ class Trainer:
             dcfg = dataclasses.replace(dcfg, seed=dcfg.seed + 10007)
         return make_batch_loader(dcfg, num_class=self.cfg.model.num_class,
                                  train=train, ndims=self.cfg.model.dims,
-                                 start_event=start_event)
+                                 start_event=start_event,
+                                 shard=(self.mesh.rank, self.mesh.data))
 
     def device_batch(self, batch: Dict) -> Dict:
         """Host batch (numpy) -> tensors on the trainer's device."""
@@ -225,8 +300,15 @@ class Trainer:
         if path is None:
             path = ckpt.latest_checkpoint(self.cfg.train.checkpoint_dir)
         if path is None:
+            hint = ""
+            if self.mesh.world > 1:
+                # rank 0 alone writes checkpoints, so the other ranks find
+                # them only on a filesystem they share with it
+                hint = (" — distributed runs write checkpoints from rank 0"
+                        " only, so train.checkpoint_dir must be on a"
+                        " filesystem shared by all ranks")
             raise FileNotFoundError(
-                f"no checkpoint in {self.cfg.train.checkpoint_dir!r}")
+                f"no checkpoint in {self.cfg.train.checkpoint_dir!r}{hint}")
         ts = self.init_state()
         params_only = self._params_only_path(path)
         template = {"train_state": jax_train_state(ts.model, ts.opt, ts.key),
@@ -237,6 +319,25 @@ class Trainer:
             return ts, 0, 0
         return (TrainState(model=ts.model, opt=opt, key=key),
                 int(tree["meta"]["step"]), int(tree["meta"]["data_cursor"]))
+
+    @torch.no_grad()
+    def _sync_state(self, ts: TrainState, start_step: int, cursor: int
+                    ) -> Tuple[TrainState, int, int]:
+        """Rank 0's params, BN state, Adam state, key, step and data cursor
+        on every rank (after init and after restore), so the replicas start
+        equal whatever each rank found on its disk."""
+        group = self.mesh.group
+        m = ts.model
+        broadcast([*m.parameters(), *m.buffers(), *ts.opt.mu.values(),
+                   *ts.opt.nu.values()], group)
+        meta = torch.tensor([ts.opt.step, int(ts.key[0]), int(ts.key[1]),
+                             start_step, cursor], dtype=torch.int64,
+                            device=self.device)
+        broadcast([meta], group)
+        step, k0, k1, start_step, cursor = meta.tolist()
+        return (TrainState(model=m, opt=ts.opt._replace(step=step),
+                           key=np.array([k0, k1], np.uint32)),
+                start_step, cursor)
 
     def _params_only_path(self, path: str) -> bool:
         lf = self.cfg.train.load_file
@@ -261,6 +362,9 @@ class Trainer:
                 ts = self.init_state()
         else:
             ts = self.init_state()
+        mesh = self.mesh
+        if mesh.group is not None:
+            ts, start_step, cursor = self._sync_state(ts, start_step, cursor)
         K = max(1, int(cfg.train.steps_per_dispatch))
         for name, period in (("summary_iter", cfg.train.summary_iter),
                              ("val_iter", cfg.train.val_iter),
@@ -274,13 +378,22 @@ class Trainer:
         loader = self.make_loader(train=True, start_event=cursor)
         loader.start()
         self.loader = loader
-        logger = MetricsLogger(cfg.train.log_dir, name="train", echo=log)
-        val_logger = MetricsLogger(cfg.train.log_dir, name="val", echo=log)
+        # rank 0 alone writes: the metrics are equal on every rank, and
+        # writers on shared paths would interleave
+        if mesh.leader:
+            logger = MetricsLogger(cfg.train.log_dir, name="train", echo=log)
+            val_logger = MetricsLogger(cfg.train.log_dir, name="val", echo=log)
+        else:
+            logger, val_logger = NullLogger(), NullLogger()
         it = device_prefetch(iter(loader), device=self.device,
                              depth=cfg.data.prefetch_depth)
         # SIGTERM (preemption): finish the step, checkpoint, leave the loop;
         # --resume continues exactly. Off the main thread no handler is
-        # installed (signal.signal raises there).
+        # installed (signal.signal raises there). Each rank receives its own
+        # SIGTERM; with more than one rank a MAX all-reduce of the flag per
+        # step makes every rank leave after the same step (a rank that left
+        # alone would leave the others waiting in a collective).
+        sync_preempt = cfg.train.preempt_save and mesh.world > 1
         preempted = {"flag": False}
         installed, prev_sigterm = False, None
         if cfg.train.preempt_save:
@@ -319,17 +432,25 @@ class Trainer:
                 if cfg.train.val_iter and step % cfg.train.val_iter == 0:
                     val_logger.log(step, self.validate(
                         ts, num_batches=cfg.train.val_batches))
-                if cfg.train.checkpoint_iter and step % cfg.train.checkpoint_iter == 0:
+                if (cfg.train.checkpoint_iter and mesh.leader
+                        and step % cfg.train.checkpoint_iter == 0):
                     self.save(ts, step, cursor_now)
-                if preempted["flag"]:
-                    path = self.save(ts, step, cursor_now)
-                    print(f"[uresnet_tpu_torch] SIGTERM: checkpoint saved at "
-                          f"step {step} -> {path}; resume with --resume",
-                          flush=True)
+                hit = preempted["flag"]
+                if sync_preempt:
+                    hit = bool(all_reduce_max(
+                        torch.tensor([float(hit)], device=self.device),
+                        mesh.group).item())
+                if hit:
+                    if mesh.leader:
+                        path = self.save(ts, step, cursor_now)
+                        print(f"[uresnet_tpu_torch] SIGTERM: checkpoint saved "
+                              f"at step {step} -> {path}; resume with "
+                              f"--resume", flush=True)
                     last["preempted_at_step"] = float(step)
                     break
             else:
-                self.save(ts, start_step + iters, cursor_now)
+                if mesh.leader:
+                    self.save(ts, start_step + iters, cursor_now)
         finally:
             if installed:
                 # a None handler was installed from C: restore the default
@@ -348,7 +469,8 @@ class Trainer:
     def validate(self, ts: TrainState, *, num_batches: int = 8) -> Dict[str, float]:
         """In-loop validation: means of the metrics over ``num_batches``
         sampled held-out batches; with ``train.val_exact``, the
-        exactly-once pass over the held-out set (``evaluate_dataset``)."""
+        exactly-once pass over the held-out set (``evaluate_dataset``).
+        Under DP every rank runs it (its metrics are all-reduced)."""
         if self.cfg.train.val_exact:
             from uresnet_tpu_torch.engine.evaluator import evaluate_dataset
 

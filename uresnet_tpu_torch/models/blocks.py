@@ -30,13 +30,15 @@ from uresnet_tpu_torch.ops.norm import batch_norm, batch_norm_train, bn_init
 @dataclass(frozen=True)
 class BlockCtx:
     """Static per-call context: dims, compute dtype, BN hyperparameters,
-    train or eval."""
+    train or eval, and the data-parallel group whose global batch the
+    train-mode BN statistics span (None: this process's batch)."""
 
     dims: int = 2
     compute_dtype: torch.dtype = torch.bfloat16
     bn_eps: float = 1e-3
     bn_momentum: float = 0.99
     train: bool = False
+    group: Optional[object] = None
 
     def conv(self, x, p, stride=1):
         return conv(x, p, stride=stride, dims=self.dims,
@@ -80,7 +82,7 @@ class BatchNorm(nn.Module):
         params, state = dict(self.named_parameters()), dict(self.named_buffers())
         if ctx.train:
             return batch_norm_train(x, params, state, momentum=ctx.bn_momentum,
-                                    eps=ctx.bn_eps)
+                                    eps=ctx.bn_eps, group=ctx.group)
         return batch_norm(x, params, state, eps=ctx.bn_eps), state
 
 

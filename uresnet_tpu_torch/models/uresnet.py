@@ -83,14 +83,15 @@ class UResNet(nn.Module):
         self.head = Conv(cfg.final_kernel, f, cfg.num_class, use_bias=True,
                          **kw)
 
-    def forward(self, x: torch.Tensor, train: bool = False):
+    def forward(self, x: torch.Tensor, train: bool = False, group=None):
         """The BN-state tree is keyed as ``uresnet_apply``'s: new detached
-        running stats in train mode, the buffers in eval mode."""
+        running stats in train mode, the buffers in eval mode. ``group``: the
+        data-parallel group of the train-mode BN statistics."""
         cfg = self.cfg
         ctx = BlockCtx(dims=cfg.dims,
                        compute_dtype=canonical_dtype(cfg.compute_dtype),
                        bn_eps=cfg.bn_eps, bn_momentum=cfg.bn_momentum,
-                       train=train)
+                       train=train, group=group)
         level, block = (remat_wrappers(cfg.remat)
                         if train and torch.is_grad_enabled()
                         else remat_wrappers(False))
