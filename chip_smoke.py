@@ -11,28 +11,41 @@ configs/train_3d_192.yaml, with random seeded weights:
   1. device   — requires a CUDA device; prints the card's name and power
                 limit (nvidia-smi) and the torch / CUDA versions;
   2. build    — compiles uresnet_tpu_torch/csrc/*.cu with nvcc (sm_90a);
-  3. kernels  — the fused conv's tensor-core kernel vs its plain version at
-                every shape the flagship forward gives it (enumerated from
-                the model) x {residual+ReLU, ReLU, residual}, plus a ragged
-                spatial case; the CUDA-core kernel on an f32 case and a
-                ragged-channel case; the launch counters show which kernel
-                ran each. Then at batch 32, as the forward calls it, checks
-                the kernel again and times it beside its bound, the
+  3. kernels  — the fused conv's three kernels vs the plain version: the
+                tensor-core kernel (bf16) and the f32 tensor-core kernel
+                (3xTF32) at every shape their forward gives them
+                (enumerated from the model) x {residual+ReLU, ReLU,
+                residual}, plus a ragged spatial case (f32: and 8- and
+                40-channel cases); every f32 case also against a float64
+                conv of the same operands at 1e-5 of the max, beside the
+                plain version's and the CUDA-core kernel's errors; the
+                CUDA-core kernel on ragged channel counts (f32 20->36, bf16
+                24->40); the launch counters show which kernel ran each.
+                Then at batch 32, as the forward calls it, checks the
+                tensor-core kernel again and times it beside its bound, the
                 CUDA-core kernel on the same bf16 operands, the plain
-                version and the cuDNN bf16 composition; the CUDA-core kernel likewise at the f32
-                forward's shapes; the v1 entry point at two shapes;
+                version and the cuDNN bf16 composition; the f32 kernel
+                likewise at the f32 forward's shapes, beside the
+                CUDA-core kernel, the plain version, cuDNN's f32
+                composition and both bounds (CUDA-core f32, tensor-core
+                3xTF32); the CUDA-core kernel's
+                own run (two ragged-channel calls at batch 32, counted);
+                the v1 entry point at two shapes;
   4. serve    — 64 synthetic 512^2 events through ``python -m
                 uresnet_tpu_torch.cli.infer`` (2 batches of 32, the default
                 streamed sparse export) from a checkpoint in the JAX npz
                 layout; checks the export and that the tensor-core kernel
                 launched exactly 44 times per batch;
   4b. serve32 — the same events with ``model.compute_dtype=float32``: the
-                CUDA-core kernel launches 44 times per batch, and the scores
-                agree with the bf16 run's;
+                f32 tensor-core kernel launches 44 times per batch, and the
+                scores agree with the bf16 run's;
   5. forward  — the same events with ``kernel_backend=xla`` (cuDNN) for
-                agreement, and both whole forwards timed.
+                agreement, and both whole forwards timed; the f32 forward
+                timed on the f32 tensor-core kernel and on the CUDA-core
+                kernel in turns, and on cuDNN's true f32.
 
-  6. profile  — ``torch.profiler`` over both whole forwards: per forward
+  6. profile  — ``torch.profiler`` over both whole forwards and the f32
+                forward on its kernel: per forward
                 the wall time, the device's busy time and idle share, the
                 peak memory and the top kernels; the full profiler tables go
                 to build/uresnet_tpu_torch/smoke/profile.txt;
@@ -81,7 +94,7 @@ configs/train_3d_192.yaml, with random seeded weights:
                 uresnet_tpu_torch.tools.export_serving --selftest`` as a
                 bf16 and an f32 ``.uxm`` (batch 32, 512^2), reloaded with
                 ``load_serving`` and run on phase 4's events densified: 44
-                tensor-core (bf16) or CUDA-core (f32) launches per batch
+                tensor-core (bf16) or f32 tensor-core (f32) launches per batch
                 through the loaded program, scores vs ``build_serving_fn``;
                 the f32 forward in-process (both backends) and through the
                 f32 artifact vs the CPU's at 1e-4, the flags unchanged after;
@@ -190,6 +203,10 @@ VOL_BATCHES = ((1, False), (2, False), (4, False), (4, "block"))
 # tensor's max-abs for f32 accumulation-order differences near zero.
 # f32 (TF32 off on both sides): 1e-4 of the max-abs.
 BF16_REL, BF16_SLACK, F32_REL = 2.0 ** -7, 1e-4, 1e-4
+# the f32 tensor-core kernel against a float64 conv of the same operands,
+# relative to the max: true f32 and 3xTF32 read ~5e-7 at K = 9*C up to
+# 4608, one TF32 product ~3e-4 (tests/test_torch_f32_split.py)
+F64_REL = 1e-5
 # whole forward, kernel vs cuDNN path, bf16: the two round at different
 # places over ~60 convs (CPU estimate at 128^2: max softmax |d| 0.0056,
 # argmax agreement 99.5% of charge pixels)
@@ -202,8 +219,10 @@ KERNELS_ONLY = False  # phases 1-3 alone (--kernels-only)
 # transposes, torch's permute copies)
 LAYOUT_KERNELS = ("nchwtonhwc", "nhwctonchw", "transpose", "permute",
                   "ncdhw", "ndhwc")
-# an H100 SXM's published peaks (NVIDIA data sheet, dense), for the bounds
+# an H100 SXM's published peaks (NVIDIA data sheet, dense), for the bounds;
+# TF32 494.7 TFLOP/s dense (the data sheet's 989.4 is with sparsity)
 HBM_BYTES_PER_S, BF16_PEAK, F32_PEAK = 3.35e12, 989e12, 67e12
+TF32_PEAK = 494.7e12
 
 
 def card_line() -> str:
@@ -272,16 +291,21 @@ def check_close(got, want, dtype):
     return err.max().item(), err.max().item() / max(scale, 1e-30)
 
 
-def bound(B, H, W, C, Co, res, dtype):
+def bound(B, H, W, C, Co, res, dtype, tf32x3=False):
     """(least ms, what bounds it) for one fused conv on an H100: its bytes
     (x, w, scale, bias, residual read once, y written once) over HBM's rate
     against its FLOP over the peak rate of the units it runs on (bf16:
-    tensor cores; f32: CUDA cores, TF32 being off)."""
+    tensor cores; f32: CUDA cores; f32 with ``tf32x3``: three TF32 tensor-
+    core products per term, 3 x FLOP at the TF32 peak)."""
     e = 2 if dtype == torch.bfloat16 else 4
     px = B * H * W
     nbytes = e * (px * C + 9 * C * Co + px * Co * (2 if res else 1)) + 8 * Co
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 18 * C * Co * px / (BF16_PEAK if e == 2 else F32_PEAK) * 1e3
+    flop = 18 * C * Co * px
+    if e == 2:
+        t_ops = flop / BF16_PEAK * 1e3
+    else:
+        t_ops = (3 * flop / TF32_PEAK if tf32x3 else flop / F32_PEAK) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -317,18 +341,43 @@ def cudnn_composition(x, w, bias, r):
     return torch.relu(y + r) if r is not None else torch.relu(y)
 
 
-def cuda_core_bf16(fused_mod, x, w, scale, bias, r):
-    """The CUDA-core kernel on bf16 operands, called through the
-    library's C entry (the wrapper sends these shapes to the tensor-core
-    kernel): timed beside it, counted nowhere."""
+def c_entry(fused_mod, name, x, w, scale, bias, r, relu=True):
+    """A kernel called through the library's C entry ``name``, around the
+    wrapper's routing: the CUDA-core kernel on operands the wrapper sends
+    to a tensor-core kernel. Timed beside the routed kernel and counted
+    nowhere."""
     out = torch.empty(x.shape[:3] + w.shape[3:], dtype=x.dtype, device=x.device)
-    err = fused_mod._lib().uresnet_fused_conv3x3_bf16(
+    err = getattr(fused_mod._lib(), name)(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         r.data_ptr() if r is not None else None, out.data_ptr(),
-        *x.shape, w.shape[3], 1, torch.cuda.current_stream().cuda_stream)
+        *x.shape, w.shape[3], int(relu), torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"CUDA-core kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out
+
+
+def cuda_core(fused_mod, x, w, scale, bias, r, relu=True):
+    """The CUDA-core kernel on ``x``'s dtype, through its C entry."""
+    return c_entry(fused_mod, fused_mod._ENTRY[x.dtype], x, w, scale, bias, r,
+                   relu)
+
+
+def conv_f64(x, w, scale, bias, r, relu=True):
+    """The fused conv's function in float64 on the card (cuDNN's double
+    conv): the yardstick that tells f32 accuracy from TF32's."""
+    y = torch.nn.functional.conv2d(
+        x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1),
+        padding=1).permute(0, 2, 3, 1)
+    y = y * scale.double() + bias.double()
+    if r is not None:
+        y = y + r.double()
+    return torch.relu(y) if relu else y
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want|."""
+    want = want.double()
+    return ((got.double() - want).abs().max() / want.abs().max()).item()
 
 
 def forward_calls(fold, serve, cfg, dev):
@@ -351,19 +400,24 @@ def forward_calls(fold, serve, cfg, dev):
     return calls
 
 
-def kernel_phase(fused_mod, fold, serve, cfg, dev, card):
-    """Both kernels vs the plain version; which kernel each case ran; the
-    tensor-core kernel's times at the forward's shapes at batch 32. Returns
-    the tensor-core kernel's record and its per-call rows."""
+def kernel_phase(fused_mod, fold, serve, serve32, cfg, dev, card):
+    """The three kernels vs the plain version, the f32 cases also vs
+    float64; which kernel each case ran; the tensor-core kernel's times at
+    the bf16 forward's shapes at batch 32. Returns the tensor-core kernel's
+    record and the f32 tensor-core kernel's worst error."""
     calls = forward_calls(fold, serve, cfg, dev)
     shapes = sorted({k[:4] for k in calls}, key=lambda s: (-s[2], s[0]))
+    shapes32 = sorted({k[:4] for k in forward_calls(fold, serve32, cfg, dev)},
+                      key=lambda s: (-s[2], s[0]))
     print(f"[kernels] flagship forward: {sum(calls.values())} fused calls, "
-          f"{len(shapes)} distinct (C, Co, H, W): {shapes}", flush=True)
+          f"{len(shapes)} distinct (C, Co, H, W): {shapes}; the f32 forward's "
+          f"{shapes32}", flush=True)
     operands = operand_maker(dev, SEED)
 
     def check_cases(cases, counter):
         worst = 0.0
         fused_mod.launches_tensor_core = fused_mod.launches_cuda_core = 0
+        fused_mod.launches_f32_tensor_core = 0
         for (C, Co, H, W), dtype, res, relu in cases:
             x, w, scale, bias, r = operands(1, H, W, C, Co, dtype, res)
             got = fused_mod.fused_conv3x3_bn_relu_v2(x, w, scale, bias, r,
@@ -371,24 +425,44 @@ def kernel_phase(fused_mod, fold, serve, cfg, dev, card):
             want = fused_mod.fused_conv3x3_bn_relu_v2_reference(
                 x, w, scale, bias, r, relu=relu)
             torch.cuda.synchronize()
-            abs_err, rel_err = check_close(got, want, dtype)
+            abs_err, rel = check_close(got, want, dtype)
             worst = max(worst, abs_err)
+            f64 = ""
+            if dtype == torch.float32:  # true f32: within F64_REL of float64
+                ref = conv_f64(x, w, scale, bias, r, relu)
+                e_k, e_p = rel_err(got, ref), rel_err(want, ref)
+                e_c = rel_err(cuda_core(fused_mod, x, w, scale, bias, r, relu), ref)
+                if e_k > F64_REL:
+                    raise AssertionError(f"{counter} kernel {C}->{Co} @{H}x{W}: "
+                                         f"{e_k:.3e} of the max from float64 "
+                                         f"(limit {F64_REL})")
+                f64 = (f"; vs float64 {e_k:.3e} of the max (limit {F64_REL}; "
+                       f"plain f32 {e_p:.3e}, cuda-core kernel {e_c:.3e})")
             print(f"[kernels] {counter}: {C}->{Co} @{H}x{W} {str(dtype)[6:]} "
                   f"residual={res} relu={relu}: max abs err {abs_err:.3e}, "
-                  f"rel {rel_err:.3e} ok", flush=True)
+                  f"rel {rel:.3e}{f64} ok", flush=True)
         ran = {"tensor_core": fused_mod.launches_tensor_core,
+               "f32_tensor_core": fused_mod.launches_f32_tensor_core,
                "cuda_core": fused_mod.launches_cuda_core}
         if ran[counter] != len(cases) or sum(ran.values()) != len(cases):
             raise AssertionError(f"{len(cases)} cases meant for the {counter} "
                                  f"kernel launched {ran}")
         return worst
 
+    variants = ((True, True), (False, True), (True, False))
     tc_worst = check_cases(
-        [(s, torch.bfloat16, res, relu) for s in shapes
-         for res, relu in ((True, True), (False, True), (True, False))]
+        [(s, torch.bfloat16, res, relu) for s in shapes for res, relu in variants]
         + [((32, 48, 37, 53), torch.bfloat16, True, True)],   # ragged H, W
         "tensor_core")
-    check_cases([((64, 64, 128, 128), torch.float32, True, True),   # f32
+    f32_worst = check_cases(
+        [(s, torch.float32, res, relu) for s in shapes32 for res, relu in variants]
+        # ragged H, W (tiles cut at the edges) at each channel tile: wgmma
+        # at 64 and 32 (16x16-pixel tiles), mma.sync at 16 and 8 (8x32)
+        + [((C, C, 37, 53), torch.float32, True, True) for C in (64, 32, 16, 8)]
+        + [((32, 48, 37, 53), torch.float32, True, True),     # Co = 3 x 16
+           ((24, 40, 37, 53), torch.float32, False, True)],   # Co = 5 x 8
+        "f32_tensor_core")
+    check_cases([((20, 36, 37, 53), torch.float32, True, True),    # ragged C
                  ((24, 40, 37, 53), torch.bfloat16, True, True)],  # ragged C
                 "cuda_core")
 
@@ -400,7 +474,7 @@ def kernel_phase(fused_mod, fold, serve, cfg, dev, card):
         x, w, scale, bias, r = operands(B, H, W, C, Co, torch.bfloat16, res)
         t_k = time_ms(lambda: fused_mod.fused_conv3x3_bn_relu_v2(
             x, w, scale, bias, r), inner=10)
-        t_1 = time_ms(lambda: cuda_core_bf16(fused_mod, x, w, scale, bias, r),
+        t_1 = time_ms(lambda: cuda_core(fused_mod, x, w, scale, bias, r),
                       inner=10)
         t_p = time_ms(lambda: fused_mod.fused_conv3x3_bn_relu_v2_reference(
             x, w, scale, bias, r), inner=10)
@@ -430,50 +504,96 @@ def kernel_phase(fused_mod, fold, serve, cfg, dev, card):
     return {"max_abs_err": tc_worst, "ms": total[0], "plain_ms": total[2],
             "bound_ms": total[4],
             "bound_by": bound_by([(row[0], row[5], row[6]) for row in rows]),
+            "library_ms": total[3]}, f32_worst
+
+
+def f32_phase(fused_mod, fold, serve32, cfg, dev, card, worst):
+    """The f32 tensor-core kernel at the shapes of the f32 forward (the
+    flagship with compute_dtype float32), batch 32, per (shape, residual)
+    as the forward calls it: checked against the plain version and timed
+    beside the CUDA-core kernel on the same operands (its C entry), the
+    plain version and the cuDNN f32 composition (TF32 off), with both
+    bounds: the CUDA cores' f32 and the tensor cores' 3xTF32. Summed over
+    one forward's calls. Returns the kernel's record (its bound: the 3xTF32
+    one, the smaller)."""
+    calls = forward_calls(fold, serve32, cfg, dev)
+    operands = operand_maker(dev, SEED + 4)
+    B = cfg.data.batch_size
+    names = ("f32 tensor-core kernel", "cuda-core kernel", "plain(f32)",
+             "cudnn f32 composition", "3xTF32 bound", "CUDA-core f32 bound")
+    total, parts = [0.0] * len(names), []
+    for (C, Co, H, W, res), n in sorted(calls.items(), key=lambda kv: -kv[0][2]):
+        x, w, scale, bias, r = operands(B, H, W, C, Co, torch.float32, res)
+        fns = (lambda: fused_mod.fused_conv3x3_bn_relu_v2(x, w, scale, bias, r),
+               lambda: cuda_core(fused_mod, x, w, scale, bias, r),
+               lambda: fused_mod.fused_conv3x3_bn_relu_v2_reference(
+                   x, w, scale, bias, r),
+               lambda: cudnn_composition(x, w, bias, r))
+        worst = max(worst, check_close(fns[0](), fns[2](), torch.float32)[0])
+        t = [time_ms(fn, reps=3, warmup=1, inner=5) for fn in fns]
+        t_b3, by = bound(B, H, W, C, Co, res, torch.float32, tf32x3=True)
+        t_b1, by1 = bound(B, H, W, C, Co, res, torch.float32)
+        t += [t_b3, t_b1]
+        parts.append((n, t_b3, by))
+        flop = 18 * C * Co * H * W * B
+        nbytes = 4 * B * H * W * (C + Co * (2 if res else 1))
+        print(f"[kernels] f32 B={B} {C}->{Co} @{H}x{W} residual={res} x{n}: "
+              f"ok; f32 tensor-core kernel {t[0]:.4f} ms ({flop / t[0] / 1e9:.1f} "
+              f"f32 TFLOP/s, {nbytes / t[0] / 1e6:.0f} GB/s; {t_b3 / t[0]:.3f} of "
+              f"the 3xTF32 bound {t_b3:.4f} ms, {by}), cuda-core kernel "
+              f"{t[1]:.4f} ms ({t_b1 / t[1]:.3f} of its f32 bound {t_b1:.4f} ms, "
+              f"{by1}), plain(f32) {t[2]:.4f} ms, cudnn f32 {t[3]:.4f} ms | {card}",
+              flush=True)
+        for i, v in enumerate(t):
+            total[i] += n * v
+    print(f"[kernels] f32 per forward ({sum(calls.values())} calls): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in zip(names, total))
+          + f"; the f32 tensor-core kernel at {total[4] / total[0]:.3f} of the "
+          f"3xTF32 bound, the cuda-core kernel at {total[5] / total[1]:.3f} of "
+          f"the f32 bound | {card}", flush=True)
+    return {"max_abs_err": worst, "ms": total[0], "plain_ms": total[2],
+            "bound_ms": total[4], "bound_by": bound_by(parts),
             "library_ms": total[3]}
 
 
-def cuda_core_phase(fused_mod, fold, cfg, model, dev, card):
-    """The CUDA-core kernel at the shapes of the f32 forward (the flagship
-    with compute_dtype float32), batch 32: checked against the plain
-    version and timed beside its bound and the cuDNN f32 composition (TF32
-    off), summed over one forward's calls."""
-    from uresnet_tpu_torch.engine.export import build_serving_fn
-
-    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, compute_dtype="float32"))
-    calls = forward_calls(fold, build_serving_fn(cfg32, model), cfg32, dev)
-    operands = operand_maker(dev, SEED + 4)
-    B = cfg.data.batch_size
-    worst, total, parts = 0.0, [0.0] * 4, []
-    for (C, Co, H, W, res), n in sorted(calls.items(), key=lambda kv: -kv[0][2]):
-        x, w, scale, bias, r = operands(B, H, W, C, Co, torch.float32, res)
-        t_k = time_ms(lambda: fused_mod.fused_conv3x3_bn_relu_v2(
-            x, w, scale, bias, r), reps=3, warmup=1, inner=5)
-        t_p = time_ms(lambda: fused_mod.fused_conv3x3_bn_relu_v2_reference(
-            x, w, scale, bias, r), reps=3, warmup=1, inner=5)
-        t_c = time_ms(lambda: cudnn_composition(x, w, bias, r), reps=3,
-                      warmup=1, inner=5)
+def ragged_phase(fused_mod, cfg, dev, card):
+    """The CUDA-core kernel's own path, ragged channel counts through the
+    op at batch 32, 256^2 (no model config has them: the forward sends only
+    multiples of 16 to the op): one launch each with the counts from 0 --
+    its run -- then held against the plain version and timed. Returns its
+    record, summed over the two calls."""
+    operands = operand_maker(dev, SEED + 2)
+    B, cases = cfg.data.batch_size, ((24, 40, 256, 256, True, torch.bfloat16),
+                                     (20, 36, 256, 256, False, torch.float32))
+    ops = [operands(B, H, W, C, Co, dt, res) for C, Co, H, W, res, dt in cases]
+    outs, counts, _ = counted(fused_mod, lambda: [
+        fused_mod.fused_conv3x3_bn_relu_v2(*o) for o in ops])
+    expect_launches(counts, 1, "cuda_core", per_batch=len(cases))
+    rec = {"launches": counts["cuda_core"], "max_abs_err": 0.0, "ms": 0.0,
+           "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    parts = []
+    for (C, Co, H, W, res, dt), o, got in zip(cases, ops, outs):
         abs_err, _ = check_close(
-            fused_mod.fused_conv3x3_bn_relu_v2(x, w, scale, bias, r),
-            fused_mod.fused_conv3x3_bn_relu_v2_reference(x, w, scale, bias, r),
-            torch.float32)
-        worst = max(worst, abs_err)
-        t_b, by = bound(B, H, W, C, Co, res, torch.float32)
-        parts.append((n, t_b, by))
-        print(f"[kernels] f32 B={B} {C}->{Co} @{H}x{W} residual={res} x{n}: "
-              f"max abs err {abs_err:.3e} ok; cuda-core kernel {t_k:.4f} ms, "
-              f"bound {t_b:.4f} ms ({by}), plain(f32) {t_p:.4f} ms, cudnn f32 "
-              f"{t_c:.4f} ms", flush=True)
-        for i, t in enumerate((t_k, t_p, t_c, t_b)):
-            total[i] += n * t
-    print(f"[kernels] f32 per forward ({sum(calls.values())} calls): "
-          f"cuda-core kernel {total[0]:.3f} ms, bound {total[3]:.3f} ms, "
-          f"plain(f32) {total[1]:.3f} ms, cudnn f32 composition "
-          f"{total[2]:.3f} ms | {card}", flush=True)
-    return {"max_abs_err": worst, "ms": total[0], "plain_ms": total[1],
-            "bound_ms": total[3], "bound_by": bound_by(parts),
-            "library_ms": total[2]}
+            got, fused_mod.fused_conv3x3_bn_relu_v2_reference(*o), dt)
+        t_k = time_ms(lambda: fused_mod.fused_conv3x3_bn_relu_v2(*o), reps=3,
+                      warmup=1, inner=5)
+        t_p = time_ms(lambda: fused_mod.fused_conv3x3_bn_relu_v2_reference(*o),
+                      reps=3, warmup=1, inner=5)
+        t_c = time_ms(lambda: cudnn_composition(o[0], o[1], o[3], o[4]),
+                      reps=3, warmup=1, inner=5)
+        t_b, by = bound(B, H, W, C, Co, res, dt)
+        parts.append((1, t_b, by))
+        rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+        for k, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_c),
+                     ("bound_ms", t_b)):
+            rec[k] += t
+        print(f"[kernels] ragged B={B} {C}->{Co} @{H}x{W} {str(dt)[6:]} "
+              f"residual={res}: cuda-core kernel, launches {counts}; max abs "
+              f"err {abs_err:.3e} ok; kernel {t_k:.4f} ms, bound {t_b:.4f} ms "
+              f"({by}), plain(f32) {t_p:.4f} ms, cudnn {t_c:.4f} ms | {card}",
+              flush=True)
+    rec["bound_by"] = bound_by(parts)
+    return rec
 
 
 def v1_phase(fused_mod, cfg, dev):
@@ -627,21 +747,23 @@ def counted(fused_mod, fn):
     after. Returns (its result, the counts, wall s)."""
     fused_mod.launches = fused_mod.launches_v1 = 0
     fused_mod.launches_tensor_core = fused_mod.launches_cuda_core = 0
+    fused_mod.launches_f32_tensor_core = 0
     t0 = time.time()
     result = fn()
     torch.cuda.synchronize()
     wall = time.time() - t0
     return result, {"v2": fused_mod.launches,
                     "tensor_core": fused_mod.launches_tensor_core,
+                    "f32_tensor_core": fused_mod.launches_f32_tensor_core,
                     "cuda_core": fused_mod.launches_cuda_core}, wall
 
 
 def expect_launches(counts, n_batches, kernel="tensor_core", per_batch=44):
     """The entry point ``launches`` and the kernel named by ``kernel``
-    ('tensor_core' or 'cuda_core') counted ``per_batch`` per batch, the
-    other kernel none."""
+    ('tensor_core', 'f32_tensor_core' or 'cuda_core') counted
+    ``per_batch`` per batch, the other kernels none."""
     n = per_batch * n_batches
-    want = {"v2": n, "tensor_core": 0, "cuda_core": 0}
+    want = {"v2": n, "tensor_core": 0, "f32_tensor_core": 0, "cuda_core": 0}
     want[kernel] = n
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != {want}")
@@ -1556,7 +1678,7 @@ def artifact_phase(cfg_path, cfg, events, fused_mod, card, dev, t_fwd5):
     loaded = {}
     for name, c, extra, kernel in (
             ("bf16", cfg, [], "tensor_core"),
-            ("f32", cfg32, ["model.compute_dtype=float32"], "cuda_core")):
+            ("f32", cfg32, ["model.compute_dtype=float32"], "f32_tensor_core")):
         out = os.path.join(WORK, f"flagship_{name}.uxm")
         wall = export_cli(["--config", cfg_path, "--checkpoint", ckpt,
                            "--output", out, "--batch", str(B), "--selftest",
@@ -2257,8 +2379,10 @@ def main():
           flush=True)
     log = lib.with_suffix(".so.log")
     for line in log.read_text().splitlines() if log.exists() else ():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "wgmma" in line:
             print(f"[build]   ptxas: {line.strip()}", flush=True)
+        elif line.startswith("nvcc "):  # each source's compile, run at once
+            print(f"[build]   {line}", flush=True)
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -2271,10 +2395,16 @@ def main():
     randomize_bn(model, g)
     model.to(dev)
     serve = build_serving_fn(cfg, model)
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="float32"))
+    serve32 = build_serving_fn(cfg32, model)
 
-    # 3. both kernels vs plain; times at the main paths' shapes; v1
-    tc_rec = kernel_phase(fused_mod, fold, serve, cfg, dev, card)
-    cc_rec = cuda_core_phase(fused_mod, fold, cfg, model, dev, card)
+    # 3. the kernels vs plain (f32 also vs float64); times at the main
+    # paths' shapes; the CUDA-core kernel's ragged-channel run; v1
+    tc_rec, f32_worst = kernel_phase(fused_mod, fold, serve, serve32, cfg, dev,
+                                     card)
+    f32_rec = f32_phase(fused_mod, fold, serve32, cfg, dev, card, f32_worst)
+    cc_rec = ragged_phase(fused_mod, cfg, dev, card)
     v1_rec = v1_phase(fused_mod, cfg, dev)
     if KERNELS_ONLY:
         return
@@ -2296,15 +2426,15 @@ def main():
           f"kernel), {wall:.2f} s wall incl. checkpoint restore, streamed "
           f"sparse export", flush=True)
 
-    # 4b. the f32 serving path (CUDA-core kernel), held to the bf16 one
+    # 4b. the f32 serving path (f32 tensor-core kernel), held to the bf16 one
     z32, _, counts, wall = serve_counted(
         fused_mod, infer, argv + ["model.compute_dtype=float32"],
         os.path.join(WORK, "scores_f32.npz"), N_EVENTS, cfg.model.num_class,
-        "cuda_core", batch_events=batch_events)
-    cc_rec["launches"] = counts["cuda_core"]
+        "f32_tensor_core", batch_events=batch_events)
+    f32_rec["launches"] = counts["f32_tensor_core"]
     d, agree = agreement(z32, z, "f32 vs bf16 kernel path")
     print(f"[serve32] {N_EVENTS} events at compute_dtype float32: kernel "
-          f"launches {counts} (= 44 per batch, CUDA-core kernel), {wall:.2f} s "
+          f"launches {counts} (= 44 per batch, f32 tensor-core kernel), {wall:.2f} s "
           f"wall; vs the bf16 kernel path: max softmax diff {d:.3e}, argmax "
           f"agreement {agree:.5f}", flush=True)
 
@@ -2332,9 +2462,33 @@ def main():
           f"kernel-path forward {k_ms / t_auto:.3f} (kernel {k_ms:.2f} ms, "
           f"its cudnn bf16 composition {tc_rec['library_ms']:.2f} ms, plain "
           f"f32 {tc_rec['plain_ms']:.2f} ms per forward) | {card}", flush=True)
+    # the f32 forward: on the f32 tensor-core kernel; on the CUDA-core
+    # kernel (the routing before it, `kernel_for` patched for these timings
+    # alone), in turns; and the cuDNN true-f32 path
+    serve32_xla = build_serving_fn(dataclasses.replace(cfg32, model=dataclasses.replace(
+        cfg32.model, kernel_backend="xla")), model)
+    routed = fused_mod.kernel_for
+    t32 = {"f32 tensor-core": [], "cuda-core": []}
+    for k in ("f32 tensor-core", "cuda-core", "cuda-core", "f32 tensor-core"):
+        if k == "cuda-core":
+            fused_mod.kernel_for = lambda dtype, C, Co: "cuda_core"
+        try:
+            t32[k].append(time_ms(lambda: serve32(x), reps=5))
+        finally:
+            fused_mod.kernel_for = routed
+    t32_xla = time_ms(lambda: serve32_xla(x), reps=5)
+    print(f"[forward] B={B} {S}^2 f32 forward+softmax: f32 tensor-core kernel "
+          f"path {t32['f32 tensor-core']} ms = "
+          f"{[round(B / v * 1e3, 1) for v in t32['f32 tensor-core']]} img/s; "
+          f"on the cuda-core kernel {t32['cuda-core']} ms = "
+          f"{[round(B / v * 1e3, 1) for v in t32['cuda-core']]} img/s; cudnn "
+          f"true-f32 path {t32_xla:.2f} ms = {B / t32_xla * 1e3:.1f} img/s; the "
+          f"bf16 kernel path {B / t_auto * 1e3:.1f} img/s; f32 kernel "
+          f"{f32_rec['ms']:.2f} ms per forward | {card}", flush=True)
 
     # 6. where the forward's time goes
-    profile_forwards({"kernel path": serve, "cudnn path": serve_xla}, x,
+    profile_forwards({"kernel path": serve, "cudnn path": serve_xla,
+                      "f32 kernel path": serve32}, x,
                      os.path.join(WORK, "profile.txt"), card)
 
     # 7. the training path; 7b. the f32 weight gradient on the card
@@ -2362,14 +2516,17 @@ def main():
         raise AssertionError(f"the port imported {leaked}")
     src = "uresnet_tpu_torch/csrc/conv2d.cu"
     kernels = [
-        dict(name="fused_conv3x3_bn_relu_v2 (tensor-core kernel)",
-             replaces="uresnet_tpu/ops/pallas/conv2d.py:130", **tc_rec),
-        dict(name="fused_conv3x3_bn_relu_v2 (CUDA-core kernel, f32 path)",
-             replaces="uresnet_tpu/ops/pallas/conv2d.py:130", **cc_rec),
-        dict(name="fused_conv3x3_bn_relu", 
-             replaces="uresnet_tpu/ops/pallas/conv2d.py:182", **v1_rec)]
+        dict(name="fused_conv3x3_bn_relu_v2 (tensor-core kernel, bf16)",
+             replaces="uresnet_tpu/ops/pallas/conv2d.py:130", source=src, **tc_rec),
+        dict(name="fused_conv3x3_bn_relu_v2 (f32 tensor-core kernel, 3xTF32)",
+             replaces="uresnet_tpu/ops/pallas/conv2d.py:130",
+             source="uresnet_tpu_torch/csrc/conv2d_f32tc.cu", **f32_rec),
+        dict(name="fused_conv3x3_bn_relu_v2 (CUDA-core kernel, ragged channels)",
+             replaces="uresnet_tpu/ops/pallas/conv2d.py:130", source=src, **cc_rec),
+        dict(name="fused_conv3x3_bn_relu",
+             replaces="uresnet_tpu/ops/pallas/conv2d.py:182", source=src, **v1_rec)]
     print(json.dumps({"kernels": [
-        {"name": k["name"], "route": "cuda", "source": src,
+        {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": k["launches"],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

@@ -294,6 +294,80 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+def test_build_hash_covers_headers(monkeypatch, tmp_path):
+    """The library's name hashes the headers as well as the sources, so a
+    changed csrc/*.cuh rebuilds instead of loading a stale library."""
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "a.cu").write_text('#include "p.cuh"\n')
+    (tmp_path / "p.cuh").write_text("// 1\n")
+    first = build.library_path()
+    assert build.library_path() == first
+    (tmp_path / "p.cuh").write_text("// 2\n")
+    assert build.library_path() != first
+
+
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
+    """One nvcc per source (-c), all running at once, then one -shared
+    link; the objects are removed, the compile logs and each command's
+    wall seconds kept."""
+    csrc, calls = tmp_path / "csrc", tmp_path / "calls.txt"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu"):
+        (csrc / name).write_text("// kernel\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        'args="$*"; last=""\n'
+        'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && out="$2"; last="$1"; shift; done\n'
+        'case "$args" in *" -c "*)\n'
+        f'  echo "start $last" >> {calls}; sleep 0.5; echo "end $last" >> {calls}\n'
+        '  echo "ptxas info: built $out" ;;\n'
+        f'*) echo "$args" >> {calls} ;;\n'
+        'esac\n'
+        'touch "$out"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(nvcc))
+    lib = build.build()
+    srcs = [str(csrc / "a.cu"), str(csrc / "b.cu")]
+    lines = calls.read_text().splitlines()
+    # both compiles started before either ended
+    assert sorted(lines[:2]) == [f"start {s}" for s in srcs]
+    assert sorted(lines[2:4]) == [f"end {s}" for s in srcs]
+    assert lines[4].startswith("-shared -o ") and len(lines) == 5
+    assert lib.exists() and lib == build.library_path()
+    assert sorted(p.name for p in lib.parent.iterdir()) == sorted(
+        [lib.name, lib.name + ".log"])
+    log = lib.with_suffix(".so.log").read_text()
+    assert log.count("ptxas info") == 2
+    assert [ln.split(":")[0] for ln in log.splitlines() if ln.startswith("nvcc ")] \
+        == ["nvcc a.cu", "nvcc b.cu", "nvcc link"]
+    assert build.build() == lib and len(calls.read_text().splitlines()) == 5
+
+
+def test_build_failure_raises_and_leaves_nothing(monkeypatch, tmp_path):
+    """A failed compile raises with nvcc's output and leaves no object,
+    library or log behind."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu"):
+        (csrc / name).write_text("// kernel\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && out="$2"; last="$1"; shift; done\n'
+        'touch "$out"\n'
+        'case "$last" in *b.cu) echo "b.cu(1): error: broken"; exit 2 ;; esac\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(nvcc))
+    with pytest.raises(RuntimeError, match=r"nvcc failed \(2\)[\s\S]*error: broken"):
+        build.build()
+    assert list((tmp_path / "build").iterdir()) == []
+
+
 def test_canonical_dtype():
     assert canonical_dtype("bfloat16") is torch.bfloat16
     assert canonical_dtype("float32") is torch.float32
@@ -301,30 +375,42 @@ def test_canonical_dtype():
         canonical_dtype("float64")
 
 
-@pytest.mark.parametrize("dtype,C,Co,tensor_core", [
-    (torch.bfloat16, 16, 16, True),      # 512^2 level
-    (torch.bfloat16, 512, 256, True),    # 32^2 level
-    (torch.bfloat16, 32, 48, True),      # Co not a power of two
-    (torch.float32, 64, 64, False),      # f32 stays true f32: CUDA cores
-    (torch.bfloat16, 24, 40, False),     # C not a multiple of 16
-    (torch.bfloat16, 16, 8, False),      # Co not a multiple of 16
+@pytest.mark.parametrize("dtype,C,Co,kernel", [
+    (torch.bfloat16, 16, 16, "tensor_core"),      # 512^2 level
+    (torch.bfloat16, 512, 256, "tensor_core"),    # 32^2 level
+    (torch.bfloat16, 32, 48, "tensor_core"),      # Co not a power of two
+    (torch.float32, 64, 64, "f32_tensor_core"),   # f32: 3xTF32 tensor cores
+    (torch.bfloat16, 24, 40, "cuda_core"),        # C not a multiple of 16
+    (torch.bfloat16, 16, 8, "cuda_core"),         # Co not a multiple of 16
+    (torch.float32, 16, 16, "f32_tensor_core"),   # the f32 forward's 512^2 level
+    (torch.float32, 512, 512, "f32_tensor_core"),  # ... and its 16^2 level
+    (torch.float32, 8, 8, "f32_tensor_core"),     # the TF32 MMA's depth
+    (torch.float32, 24, 40, "f32_tensor_core"),   # multiples of 8, not of 16
+    (torch.float32, 20, 36, "cuda_core"),         # f32, C and Co ragged
+    (torch.float32, 12, 16, "cuda_core"),         # f32, C not a multiple of 8
+    (torch.float32, 16, 4, "cuda_core"),          # f32, Co not a multiple of 8
 ])
-def test_kernel_choice_by_dtype_and_shape(dtype, C, Co, tensor_core):
+def test_kernel_choice_by_dtype_and_shape(dtype, C, Co, kernel):
     """Which kernel a CUDA call runs depends on dtype and shape alone."""
-    assert tfused.uses_tensor_cores(dtype, C, Co) is tensor_core
+    assert tfused.kernel_for(dtype, C, Co) == kernel
+    assert hasattr(tfused, f"launches_{kernel}")
 
 
 def test_cpu_calls_count_no_kernel(rng):
     """CPU tensors run the plain version and leave every launch count
     alone, bf16 and f32 alike."""
-    before = (tfused.launches, tfused.launches_v1, tfused.launches_tensor_core,
-              tfused.launches_cuda_core)
-    for dtype in (torch.bfloat16, torch.float32):
-        x = T(rng.standard_normal((1, 6, 5, 16)).astype(np.float32)).to(dtype)
-        w = T(rng.standard_normal((3, 3, 16, 32)).astype(np.float32)).to(dtype)
+    def counts():
+        return (tfused.launches, tfused.launches_v1, tfused.launches_tensor_core,
+                tfused.launches_f32_tensor_core, tfused.launches_cuda_core)
+
+    before = counts()
+    # the shapes a CUDA call sends to each of the three kernels
+    for dtype, C in ((torch.bfloat16, 16), (torch.float32, 16),
+                     (torch.float32, 12)):
+        x = T(rng.standard_normal((1, 6, 5, C)).astype(np.float32)).to(dtype)
+        w = T(rng.standard_normal((3, 3, C, 32)).astype(np.float32)).to(dtype)
         s, b = torch.ones(32), torch.zeros(32)
         y = tfused.fused_conv3x3_bn_relu_v2(x, w, s, b)
         y1 = tfused.fused_conv3x3_bn_relu(x, w, s, b)
         assert y.dtype == dtype and torch.equal(y, y1)
-    assert (tfused.launches, tfused.launches_v1, tfused.launches_tensor_core,
-            tfused.launches_cuda_core) == before
+    assert counts() == before

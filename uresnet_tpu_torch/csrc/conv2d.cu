@@ -9,7 +9,10 @@
 // (B,H,W,Co) in bf16 or f32, w (3,3,C,Co) in x's dtype, scale/bias (Co,)
 // f32; f32 accumulation, the epilogue in f32, one write in x's dtype.
 //
-// Two kernels, chosen by the wrapper by dtype and shape:
+// Three kernels, chosen by the wrapper (ops/cuda/conv2d.py kernel_for) by
+// dtype and shape alone: the two below, and the f32 tensor-core kernel of
+// conv2d_f32tc.cu, which runs f32 with C and Co multiples of 8 (the f32
+// serving forward) in 3xTF32, split operands that keep f32 accuracy.
 //
 // 1. conv3x3_tc_kernel, bf16 with C and Co multiples of 16 -- every conv of
 //    the serving forward. An implicit GEMM on the tensor cores: M = the
@@ -53,12 +56,13 @@
 //    fragments, one bf16 rounding into a shared output tile (padded rows,
 //    no bank conflicts), then 16-byte coalesced stores.
 //
-// 2. fused_conv3x3_kernel, the CUDA-core kernel: f32 (tensor cores would
-//    mean TF32, and f32 compute stays true f32) and bf16 whose C or Co is
-//    not a multiple of 16. A block owns a TILE_H x TILE_W patch and CO_TILE
-//    output channels, stages the halo and the weights per 16-channel chunk
-//    in shared memory converted to f32, and runs f32 FMAs; ragged edges and
-//    channel tails are masked, so any H, W, C, Co are taken.
+// 2. fused_conv3x3_kernel, the CUDA-core kernel: the channel counts the
+//    tensor-core kernels do not take (bf16 whose C or Co is not a multiple
+//    of 16, f32 whose C or Co is not a multiple of 8). A block owns a
+//    TILE_H x TILE_W patch and CO_TILE output channels, stages the halo and
+//    the weights per 16-channel chunk in shared memory converted to f32,
+//    and runs true f32 FMAs (no TF32 rounding); ragged edges and channel
+//    tails are masked, so any H, W, C, Co are taken.
 //
 // The TPU version's pre-padded H copy, H % block_h assert, sequential
 // (B, H/block_h) grid and value-level W shifts are TPU artifacts and are
@@ -69,67 +73,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
-// Inline-PTX wrappers for the tensor-core kernel: cp.async with zero fill,
-// ldmatrix, and the bf16 mma.sync (sm_80 and later).
-
-namespace ptx {
-
-// The block's dynamic shared memory.
-__device__ __forceinline__ unsigned char* dyn_smem() {
-    extern __shared__ __align__(128) unsigned char smem_buf[];
-    return smem_buf;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy, bypassing L1. With valid == false nothing
-// is read (src-size 0) and the 16 bytes are zero-filled.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 ::"r"(dst), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8 and receives, in r[i], row l / 4, columns 2(l % 4) and 2(l % 4) + 1
-// of matrix i.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
-
-// The same, transposed: r[i] holds rows 2(l % 4) and 2(l % 4) + 1 of
-// column l / 4 of matrix i.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
-
-// d += a (16x16, row-major fragments) * b (16x8, column-major), bf16 in,
-// f32 accumulate.
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-}  // namespace ptx
+#include "ptx.cuh"
 
 namespace {
 

@@ -2,10 +2,10 @@
 plain version, registered as PyTorch operators.
 
 Port of uresnet_tpu/ops/pallas/conv2d.py::fused_conv3x3_bn_relu_v2; the
-kernels are csrc/conv2d.cu. ``block_h`` is gone: it was TPU tiling. The v1
-Pallas kernel ``fused_conv3x3_bn_relu`` computes the same function with
-another TPU blocking; its name is bound here to the same kernels and plain
-version.
+kernels are csrc/conv2d.cu and csrc/conv2d_f32tc.cu. ``block_h`` is gone:
+it was TPU tiling. The v1 Pallas kernel ``fused_conv3x3_bn_relu`` computes
+the same function with another TPU blocking; its name is bound here to the
+same kernels and plain version.
 
 Both entry points are ``torch.library`` custom ops,
 ``uresnet_tpu_torch::fused_conv3x3_bn_relu_v2`` and
@@ -16,17 +16,29 @@ tracing. So ``torch.export`` keeps the op as one node of the graph
 (engine/export.py), and a loaded artifact launches the same kernel. Importing
 this module registers them.
 
-A CUDA call goes to one of two kernels, chosen by dtype and shape alone
-(`uses_tensor_cores`): bf16 with C and Co multiples of 16 — every conv of
-the serving forward — runs the tensor-core kernel; f32 (true f32, never
-TF32) and other channel counts run the CUDA-core kernel.
+A CUDA call goes to one of three kernels, named by `kernel_for` from dtype
+and shape alone:
 
-On a CUDA tensor an op launches a kernel or raises; it never falls back. On
-a CPU tensor it runs the plain version. The counters are bumped inside the
-CUDA implementation, where a kernel is launched, so launches from a loaded
-artifact count too: ``launches`` (v2) and ``launches_v1`` by entry point,
-``launches_tensor_core`` and ``launches_cuda_core`` by kernel (plain-version
-calls count nowhere), so a run can show which kernel served its path.
+* ``'tensor_core'`` — bf16 with C and Co multiples of 16, every conv of the
+  bf16 serving forward: bf16 MMAs (csrc/conv2d.cu).
+* ``'f32_tensor_core'`` — f32 with C and Co multiples of 8, every conv of
+  the f32 serving forward: the 3xTF32 kernel (csrc/conv2d_f32tc.cu; wgmma
+  where Co is a multiple of 32, mma.sync otherwise). Each f32 operand is
+  split into hi = tf32(a) and lo = tf32(a - hi), and three TF32 MMAs
+  (lo*hi + hi*lo + hi*hi) sum into f32, which keeps f32's accuracy (~5e-7
+  of the max against float64 at K = 9*C up to 4608). One TF32 product
+  (1xTF32) would not: ~3e-4. So f32 stays true f32.
+* ``'cuda_core'`` — other channel counts, of either dtype: f32 FMAs on the
+  CUDA cores (csrc/conv2d.cu), any H, W, C, Co.
+
+On a CUDA tensor an op launches its kernel or raises; it never falls back
+to another kernel or to the plain version. On a CPU tensor it runs the
+plain version. The counters are bumped inside the CUDA implementation,
+where a kernel is launched, so launches from a loaded artifact count too:
+``launches`` (v2) and ``launches_v1`` by entry point,
+``launches_tensor_core``, ``launches_f32_tensor_core`` and
+``launches_cuda_core`` by kernel (plain-version calls count nowhere), so a
+run can show which kernel served its path.
 """
 
 from __future__ import annotations
@@ -43,21 +55,23 @@ from uresnet_tpu_torch.ops.conv import true_f32
 launches = 0
 launches_v1 = 0
 launches_tensor_core = 0
+launches_f32_tensor_core = 0
 launches_cuda_core = 0
 
-# the CUDA-core kernel's entry by dtype; the tensor-core kernel's entry
+# the CUDA-core kernel's entry by dtype; the tensor-core kernels' entries
 _ENTRY = {torch.float32: "uresnet_fused_conv3x3_f32",
           torch.bfloat16: "uresnet_fused_conv3x3_bf16"}
-_TC_ENTRY = "uresnet_fused_conv3x3_bf16_tc"
+_TC_ENTRY = {"tensor_core": "uresnet_fused_conv3x3_bf16_tc",
+             "f32_tensor_core": "uresnet_fused_conv3x3_f32_tc"}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """The built library with its C signatures declared (csrc/conv2d.cu)."""
+    """The built library with its C signatures declared (csrc/*.cu)."""
     from uresnet_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
-    for name in (*_ENTRY.values(), _TC_ENTRY):
+    for name in (*_ENTRY.values(), *_TC_ENTRY.values()):
         fn = getattr(lib, name)
         # x, w, scale, bias, residual, out; B, H, W, C, Co, relu; stream
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -106,16 +120,21 @@ def _check(x, w, scale, bias, residual):
     return B, H, W, C, Co
 
 
-def uses_tensor_cores(dtype: torch.dtype, C: int, Co: int) -> bool:
-    """Whether a CUDA call runs the tensor-core kernel: bf16 with C and Co
-    multiples of 16 (the bf16 MMA's depth and the kernel's channel tiles).
-    Otherwise the CUDA-core kernel runs."""
-    return dtype == torch.bfloat16 and C % 16 == 0 and Co % 16 == 0
+def kernel_for(dtype: torch.dtype, C: int, Co: int) -> str:
+    """The kernel a CUDA call runs: 'tensor_core' for bf16 with C and Co
+    multiples of 16 (the bf16 MMA's depth and the kernel's channel tiles),
+    'f32_tensor_core' for f32 with C and Co multiples of 8 (the TF32 MMA's
+    depth and the narrowest channel tile), else 'cuda_core'."""
+    if dtype == torch.bfloat16 and C % 16 == 0 and Co % 16 == 0:
+        return "tensor_core"
+    if dtype == torch.float32 and C % 8 == 0 and Co % 8 == 0:
+        return "f32_tensor_core"
+    return "cuda_core"
 
 
 def _launch(x, w, scale, bias, residual, relu, entry: str) -> torch.Tensor:
-    """The CUDA implementation: one launch of the kernel `uses_tensor_cores`
-    picks, on the current stream, counted by kernel and in the module
+    """The CUDA implementation: one launch of the kernel `kernel_for`
+    names, on the current stream, counted by kernel and in the module
     global ``entry`` (the entry point's counter). Raises on operands the
     kernel does not take and on a failed launch."""
     B, H, W, C, Co = _check(x, w, scale, bias, residual)
@@ -130,11 +149,12 @@ def _launch(x, w, scale, bias, residual, relu, entry: str) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = _lib()
-    tensor_core = uses_tensor_cores(x.dtype, C, Co)
-    if tensor_core and any(t.data_ptr() % 16 for t in tensors + (out,)):
-        raise ValueError("the tensor-core kernel needs 16-byte aligned "
+    kernel = kernel_for(x.dtype, C, Co)
+    if kernel != "cuda_core" and any(t.data_ptr() % 16 for t in tensors + (out,)):
+        raise ValueError(f"the {kernel} kernel needs 16-byte aligned "
                          "operands (a tensor starts inside its storage)")
-    fn = getattr(lib, _TC_ENTRY if tensor_core else _ENTRY[x.dtype])
+    fn = getattr(lib, _ENTRY[x.dtype] if kernel == "cuda_core"
+                 else _TC_ENTRY[kernel])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
@@ -143,11 +163,7 @@ def _launch(x, w, scale, bias, residual, relu, entry: str) -> torch.Tensor:
     if err != 0:
         msg = lib.uresnet_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_conv3x3 launch failed: CUDA error {err} ({msg})")
-    global launches_tensor_core, launches_cuda_core
-    if tensor_core:
-        launches_tensor_core += 1
-    else:
-        launches_cuda_core += 1
+    globals()[f"launches_{kernel}"] += 1
     globals()[entry] += 1
     return out
 
