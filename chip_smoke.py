@@ -125,6 +125,26 @@ configs/train_3d_192.yaml, with random seeded weights:
                 30-row peak x 3.2 stays under 72 GiB) and batch 64 of plane
                 2; ``cli.infer`` on 3-plane events: sparse and dense exports
                 bit-equal, ``--metrics-only``, 44 launches per batch.
+ 13. tp       — tensor parallelism: configs/train_2d_512_tp.yaml at one
+                data shard's shape (batch 32, 512^2, bf16) with its model
+                axis of 2, as two ``--dp-worker tp`` ranks on the one card
+                through gloo: train_step_light timed, each rank's peak
+                memory and param + moment bytes against one process's, the
+                collectives per step (profiler), the gathered state saved by
+                rank 0 and restored in one process (digest equal); then
+                ``cli.train --distributed`` (4 steps, one ``val_exact``
+                over phase 7's 256 events on the gathered state, 44
+                tensor-core launches per 32-row batch on each rank), the
+                losses against one process on the same batches;
+ 14. sp       — the spatial halo exchange: configs/train_3d_192_sp.yaml at
+                one data group's shape (batch 2, 192^3, remat block, f32
+                head) with its spatial axis of 2 (96 of 192 D planes a
+                rank), the same checks with 0 fused launches; the first
+                step's loss held (MESH_STEPS' comment); then the same leg in
+                true f32, its first loss within 1e-5 of one process.
+                With two or more cards phases 13-14 also run on NCCL, one
+                card a rank (data 2 on four cards); with one they print
+                that those legs did not run.
 
 Then one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -134,7 +154,10 @@ build/uresnet_tpu_torch/smoke/ in the checkout.
     python3 chip_smoke.py --kernels-only
 
 runs phases 1-3 alone (a short check of the kernels) and prints no result
-line. ``--dp-worker MODE SPEC`` is one rank of phase 11, started by it.
+line; ``--parallel-only`` runs the build and phases 13-14 (with two or more
+cards their NCCL legs alone: the run for a four-card machine) and prints
+no result line. ``--dp-worker MODE SPEC`` is one rank of phase 11 (modes
+nccl, gloo) or of phases 13-14 (tp, sp), started by them.
 """
 
 from __future__ import annotations
@@ -1864,43 +1887,21 @@ DP_EVAL_ATOL = 1e-4  # the same state's dataset metrics, 1 vs 2 ranks
 DP_MOMENT_TOL = 2.0 ** -5
 
 
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def spawn_ranks(mode, spec, world, local_rank):
     """``world`` processes of ``chip_smoke.py --dp-worker mode spec`` in
-    the torchrun environment; waits for all, echoes their output, raises
+    the torchrun environment (parallel/mesh.py ``launch_local``, rank r on
+    ``cuda:local_rank(r)``); waits for all, echoes their output, raises
     if one fails; returns each rank's result dict."""
-    port = free_port()
-    procs = []
-    for rank in range(world):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
-                   LOCAL_RANK=str(local_rank(rank)), MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(port))
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--dp-worker", mode,
-             spec], env=env, cwd=ROOT, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=600)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for rank, (p, out) in enumerate(zip(procs, outs)):
+    from uresnet_tpu_torch.parallel.mesh import launch_local
+
+    res = launch_local([sys.executable, os.path.abspath(__file__),
+                        "--dp-worker", mode, spec], world, cwd=ROOT,
+                       local_rank=local_rank, timeout=600)
+    for rank, (rc, out) in enumerate(res):
         print("".join(f"[dp r{rank}]  {line}\n" for line in out.splitlines()),
               end="", flush=True)
-        if p.returncode != 0:
-            raise RuntimeError(f"dp worker {mode} rank {rank} exited "
-                               f"{p.returncode}")
+        if rc != 0:
+            raise RuntimeError(f"dp worker {mode} rank {rank} exited {rc}")
     with open(spec) as f:
         base = json.load(f)["out"]
     res = []
@@ -1938,8 +1939,15 @@ def collective_counts(step, reps=3, warmup=2):
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
-    ops = collections.Counter(e.name for e in prof.events()
-                              if e.name.startswith(("nccl:", "gloo:")))
+    # a collective's range is on the host timeline, the device's or both
+    # (gloo between CUDA tensors mirrors it): count each name on the side
+    # that shows it most often
+    sides = collections.defaultdict(collections.Counter)
+    for e in prof.events():
+        if e.name.startswith(("nccl:", "gloo:")):
+            sides[e.device_type == DeviceType.CPU][e.name] += 1
+    ops = {k: max(c[k] for c in sides.values())
+           for k in set().union(*sides.values())}
     kern, kern_us = collections.Counter(), 0.0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and "nccl" in e.name.lower():
@@ -1954,8 +1962,6 @@ def dp_worker(mode, spec_path):
     --distributed at world 1 with the DP step timed and profiled first;
     'gloo' is a rank of the two-rank run on one card (gloo between CUDA
     tensors): fit, evaluate_dataset, the state's digest."""
-    import hashlib
-
     import torch.distributed as dist
 
     from uresnet_tpu_torch import load_config
@@ -2003,11 +2009,7 @@ def dp_worker(mode, spec_path):
         ts, _ = tr.fit(iterations=DP_GLOO_STEPS, log=False)
         out["eval"], out["launches"], _ = counted(
             fused_mod, lambda: evaluate_dataset(tr, ts))
-        h = hashlib.sha256()
-        for t in (*ts.model.parameters(), *ts.model.buffers(),
-                  *ts.opt.mu.values(), *ts.opt.nu.values()):
-            h.update(t.detach().cpu().numpy().tobytes())
-        out["digest"] = h.hexdigest()
+        out["digest"] = state_digest(ts)
         mesh.shutdown()
     with open(f"{spec['out']}.{rank}.json", "w") as f:
         json.dump(out, f)
@@ -2351,6 +2353,331 @@ def mp_phase(fused_mod, card, dev):
     return t30, p30
 
 
+# -- phases 13-14: tensor parallelism and the spatial halo exchange --------------
+
+# configs/train_2d_512_tp.yaml at one data shard's shape (its global batch of
+# 128 over data 4: 32 rows) with its model axis of 2, written out as FLAGSHIP
+TP_CFG = {
+    "model": {"dims": 2, "num_class": 3, "base_filters": 16, "depth": 5,
+              "compute_dtype": "bfloat16", "pack": False},
+    "data": {"image_size": 512, "batch_size": 32, "planes": [2],
+             "weight_mode": "class_balance", "augment": True,
+             "num_threads": 6, "backend": "auto"},
+    "parallel": {"data": 1, "model": 2},
+    "optim": {"lr": 1.4e-3, "schedule": "cosine", "decay_steps": 20000},
+    "train": {"iterations": 20000, "summary_iter": 50,
+              "checkpoint_iter": 1000, "val_iter": 500},
+}
+# configs/train_3d_192_sp.yaml at one data group's shape (its global batch
+# of 8 over data 4: 2 volumes) with its spatial axis of 2; its pack: true
+# runs canonical, as config 4's does
+SP_CFG = {
+    "model": {"dims": 3, "num_class": 3, "base_filters": 16, "depth": 4,
+              "compute_dtype": "bfloat16", "pack": True, "remat": "block",
+              "head_dtype": "float32"},
+    "data": {"image_size": 192, "batch_size": 2, "planes": [0],
+             "weight_mode": "class_balance", "backend": "auto"},
+    "parallel": {"data": 1, "spatial": 2},
+    "optim": {"lr": 5.0e-4},
+    "train": {"iterations": 10000},
+}
+MESH_STEPS = 4     # cli.train --distributed steps of a leg, then val_exact
+SP_EVENTS = 16     # phase 14's training file, also its val_exact set
+# The 3D legs hold the first step's loss (one state, one batch: the sharded
+# computation itself) to DP_LOSS_RTOL and report the later ones. The
+# class-balance weights of sparse 192^3 volumes give a few voxels most of
+# the loss, so bf16 rounding moves the first loss by ~1e-3, and Adam's
+# first step (lr * g / |g|) turns order noise near zero gradients into
+# +-lr moves that grow from step to step. Phase 14's f32 leg shows the
+# mechanism exact: its first loss is held to SP_F32_RTOL.
+SP_F32_RTOL = 1e-5
+SP_F32_STEPS = 2
+PARALLEL_ONLY = False  # phases 1-2 and 13-14 alone (--parallel-only)
+
+
+def state_digest(ts) -> str:
+    """sha256 of a train state's params, BN state and Adam moments."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (*ts.model.parameters(), *ts.model.buffers(),
+              *ts.opt.mu.values(), *ts.opt.nu.values()):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def state_bytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in (
+        *ts.model.parameters(), *ts.opt.mu.values(), *ts.opt.nu.values()))
+
+
+def mesh_worker(mode, spec_path):
+    """One rank of a phase 13 ('tp') or 14 ('sp') leg (``--dp-worker``):
+    on the spec's mesh, train_step_light timed, its peak memory, its
+    collectives per step (profiler), the gathered state saved by rank 0
+    and its digest; then cli.train --distributed, counted."""
+    import torch.distributed as dist
+
+    from uresnet_tpu_torch import load_config
+    from uresnet_tpu_torch.cli import train
+    from uresnet_tpu_torch.engine.trainer import Trainer
+    from uresnet_tpu_torch.ops.cuda import conv2d as fused_mod
+    from uresnet_tpu_torch.parallel import mesh
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = mesh.init_distributed("cuda", backend=spec["backend"])
+    rank = dist.get_rank()
+    tr = Trainer(load_config(spec["cfg"], spec["overrides"] + [
+        f"train.checkpoint_dir={spec['out']}_gathered"]), device=dev)
+    m = tr.mesh
+    out = {"rank": rank, "backend": dist.get_backend(), "device": str(dev),
+           "mesh": [m.data, m.spatial, m.model]}
+    state = [tr.init_state()]
+    batch = first_batch(tr)
+
+    def step(_=None):
+        state[0], metrics = tr.train_step_light(state[0], batch)
+        return metrics
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["ms"] = time_ms(step, reps=2, warmup=1)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["ops"], out["kernels"], out["kernel_ms"] = collective_counts(
+        step, reps=1, warmup=0)
+    ts = state[0]
+    out["state_bytes"] = state_bytes(ts)
+    out["stem_w"] = list(ts.model.stem.conv.w.shape)
+    out["ckpt"] = tr.save(ts, ts.opt.step)  # gathered; rank 0 writes
+    out["digest"] = state_digest(tr.gather_state(ts))
+    del state, batch, ts, tr
+    torch.cuda.empty_cache()
+    # the CLI last: it joins the live group and shuts it down at its end
+    _, out["launches"], _ = counted(fused_mod, lambda: run_main(
+        train, [spec["cfg"], *spec["overrides"], *spec["cli"], "--device",
+                "cuda", "--distributed"], mode))
+    with open(f"{spec['out']}.{rank}.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def mesh_reference(cfg_path, overrides, n_data, dims, dev, steps):
+    """One process on the rank-major concatenation of the ``n_data``
+    shards' batches (the global batch whose rows the mesh's data indices
+    take), ``steps`` steps: the logged losses, the peak memory of the
+    steps, the param + moment bytes; and the trainer, for restores."""
+    from uresnet_tpu_torch import load_config
+    from uresnet_tpu_torch.data.loader import BatchLoader
+    from uresnet_tpu_torch.engine.trainer import Trainer
+
+    tr = Trainer(load_config(cfg_path, overrides + [
+        "parallel.data=1", "parallel.spatial=1", "parallel.model=1"]),
+        device=dev)
+    ts, rows = tr.init_state(), []
+    shards = [BatchLoader(tr.cfg.data, num_class=3, ndims=dims,
+                          shard=(r, n_data)) for r in range(n_data)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(1, steps + 1):
+        b = [s._make_batch() for s in shards]
+        for x in b:
+            x.pop("cursor")
+        ts, m = tr.train_step(ts, tr.device_batch(
+            {k: np.concatenate([x[k] for x in b]) for k in b[0]}))
+        rows.append({"step": step, "loss": float(m["loss"])})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    nbytes = state_bytes(ts)
+    del ts
+    torch.cuda.empty_cache()
+    return rows, peak, nbytes, tr
+
+
+def mesh_losses(got, want, what, rtol, held):
+    """Per-step relative differences of two runs' logged losses (the same
+    steps); raises if one of the first ``held`` steps (None: all) exceeds
+    ``rtol``."""
+    if [r["step"] for r in got] != [r["step"] for r in want]:
+        raise AssertionError(f"{what}: logged steps {[r['step'] for r in got]}"
+                             f" vs {[r['step'] for r in want]}")
+    rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+           for a, b in zip(got, want)]
+    if not all(np.isfinite(r) and r <= rtol for r in rel[:held]):
+        raise AssertionError(f"{what}: losses {[a['loss'] for a in got]} vs "
+                             f"{[b['loss'] for b in want]} (rtol {rtol} on "
+                             f"the first {held or len(rel)} steps)")
+    return rel
+
+
+def mesh_leg(mode, cfg_path, base, shape, backend, world, n_val, dims,
+             fused_mod, dev, tag, steps=None, rtol=DP_LOSS_RTOL):
+    """One leg of phase 13 or 14: ``world`` ranks of ``mesh_worker`` on the
+    mesh ``shape`` = (data, spatial, model) (gloo: all on cuda:0; nccl:
+    one card each) against `mesh_reference`. Checks the losses (2D: every
+    step, 3D: the first), the exactly-once validation (0 or 44 fused
+    launches per local batch of its rows), the gathered checkpoint
+    restored in one process (digest equal); returns the ranks' results and
+    the reference's."""
+    nd, ns, nm = shape
+    steps = steps or MESH_STEPS
+    name = tag.replace(" ", "_")
+    d = os.path.join(WORK, name)
+    over = base + [f"train.checkpoint_dir={d}/ckpt", f"train.log_dir={d}/log",
+                   f"parallel.data={nd}", f"parallel.spatial={ns}",
+                   f"parallel.model={nm}"]
+    rows_per_data = SP_CFG["data"]["batch_size"] if mode == "sp" else 32
+    over.append(f"data.batch_size={rows_per_data * nd}")
+    spec = os.path.join(WORK, f"{name}_spec.json")
+    with open(spec, "w") as f:
+        json.dump({"cfg": cfg_path, "overrides": over, "backend": backend,
+                   "out": os.path.join(WORK, name),
+                   "cli": ["train.summary_iter=1", "train.checkpoint_iter=0",
+                           f"train.val_iter={steps}",
+                           "train.val_exact=true",
+                           "--iterations", str(steps)]}, f)
+    res = spawn_ranks(mode, spec, world,
+                      (lambda r: 0) if backend == "gloo" else (lambda r: r))
+    for r in res:
+        if (r["backend"] != backend or r["mesh"] != list(shape)
+                or r["device"] != f"cuda:{0 if backend == 'gloo' else r['rank']}"):
+            raise AssertionError(f"{tag}: rank {r['rank']} on {r['backend']} "
+                                 f"{r['device']} mesh {r['mesh']}")
+    ref_rows, ref_peak, ref_bytes, tr1 = mesh_reference(cfg_path, over, nd,
+                                                        dims, dev, steps)
+    rel = mesh_losses(log_rows(f"{d}/log"), ref_rows, f"{tag} vs one process",
+                      rtol, 1 if dims == 3 else None)
+    val = log_rows(f"{d}/log", "val")
+    if [v["n_events"] for v in val] != [n_val]:
+        raise AssertionError(f"{tag} val_exact {val}")
+    per_batch = 0 if dims == 3 else 44
+    n_batches = -(-(-(-n_val // world)) // rows_per_data)
+    for r in res:
+        expect_launches(r["launches"], n_batches, per_batch=per_batch)
+    digests = {r["digest"] for r in res}
+    whole = tr1.restore(res[0]["ckpt"])[0]
+    if digests != {state_digest(whole)}:
+        raise AssertionError(f"{tag}: rank 0's checkpoint restored in one "
+                             f"process differs from the gathered state")
+    return res, rel, val[0], ref_peak, ref_bytes, n_batches
+
+
+def held(rel, dims, rtol=DP_LOSS_RTOL):
+    """The per-step loss differences of a leg, with what was held."""
+    what = "the first step's" if dims == 3 else "every step's"
+    return (f"{[f'{r:.2e}' for r in rel]} relative ({what} held to {rtol}"
+            f"{'; the later ones Adam-amplified rounding' if dims == 3 else ''})")
+
+
+def sp_f32_leg(cfg_path, base, fused_mod, dev, card):
+    """Phase 14's exactness check: the same leg at compute_dtype float32
+    (true f32, f32 head), SP_F32_STEPS steps; its first loss within
+    SP_F32_RTOL of one process."""
+    cfg = json.loads(json.dumps(SP_CFG))
+    cfg["model"].update(compute_dtype="float32", head_dtype=None)
+    path = os.path.join(WORK, "sp_f32.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    res, rel, _, ref_peak, _, _ = mesh_leg(
+        "sp", path, base, (1, 2, 1), "gloo", 2, SP_EVENTS, 3, fused_mod, dev,
+        "sp f32", steps=SP_F32_STEPS, rtol=SP_F32_RTOL)
+    print(f"[sp]      the same in true f32 (exactness): losses against one "
+          f"process {held(rel, 3, SP_F32_RTOL)}; peak per rank "
+          f"{[round(r['peak_gib'], 3) for r in res]} GiB against "
+          f"{ref_peak:.3f}; {[round(r['ms'], 2) for r in res]} ms/step | "
+          f"{card}", flush=True)
+
+
+def gloo_leg(mode, cfg, cfg_path, base, shape, form, n_events, dims,
+             fused_mod, dev, card):
+    """A phase 13-14 leg as two gloo ranks on cuda:0, printed."""
+    res, rel, val, ref_peak, ref_bytes, nb = mesh_leg(
+        mode, cfg_path, base, shape, "gloo", 2, n_events, dims, fused_mod,
+        dev, f"{mode} gloo")
+    S, B = cfg["data"]["image_size"], cfg["data"]["batch_size"]
+    what = ("the model's channels" if mode == "tp" else
+            f"D ({S // 2} of {S} planes a rank), remat block")
+    print(f"[{mode}]      {form} on one card, two ranks through gloo between "
+          f"CUDA tensors, splitting {what}: {MESH_STEPS} cli.train "
+          f"--distributed steps at batch {B}, {S}^{dims}, losses against one "
+          f"process {held(rel, dims)}; val_exact over "
+          f"{val['n_events']:.0f} events on the gathered state, the file over "
+          f"both ranks: fused launches per rank "
+          f"{[r['launches']['tensor_core'] for r in res]} (= "
+          f"{0 if dims == 3 else 44} x {nb}); rank 0's checkpoint restores in "
+          f"one process equal to the gathered state (stem kernel per rank "
+          f"{res[0]['stem_w']})", flush=True)
+    print(f"[{mode}]      per rank: peak "
+          f"{[round(r['peak_gib'], 3) for r in res]} GiB against one "
+          f"process's {ref_peak:.3f} GiB at the same batch; params + Adam "
+          f"moments {[r['state_bytes'] for r in res]} bytes against "
+          f"{ref_bytes}; collectives per step (profiler) {res[0]['ops']}; "
+          f"train_step_light {[round(r['ms'], 2) for r in res]} ms/step "
+          f"(through the host: a correctness run) | {card}", flush=True)
+
+
+def nccl_leg(mode, cfg_path, base, shape, n_events, dims, fused_mod, dev,
+             card, n_cards):
+    """A phase 13-14 leg on NCCL, one card a rank: data 2 on 4 cards, data
+    1 on 2-3; printed."""
+    w = 4 if n_cards >= 4 else 2
+    shape = (w // 2,) + tuple(shape[1:])
+    res, rel, val, ref_peak, _, _ = mesh_leg(
+        mode, cfg_path, base, shape, "nccl", w, n_events, dims, fused_mod,
+        dev, f"{mode} nccl")
+    print(f"[{mode}]      NCCL across {w} cards, mesh (data, spatial, model) "
+          f"{shape}: ran; losses against one process on the rank-major "
+          f"batch {held(rel, dims)}; val_exact {val['n_events']:.0f} events; peak "
+          f"per rank {[round(r['peak_gib'], 3) for r in res]} GiB (one "
+          f"process {ref_peak:.3f}); params + Adam moments per rank "
+          f"{[r['state_bytes'] for r in res]} bytes; collectives per step "
+          f"{res[0]['ops']}, NCCL kernels {res[0]['kernels']} "
+          f"({res[0]['kernel_ms']:.3f} ms); "
+          f"{[round(r['ms'], 2) for r in res]} ms/step | {card}", flush=True)
+
+
+def parallel_phase(fused_mod, card, dev):
+    """Phases 13 (tp) and 14 (sp): see the module docstring."""
+    from uresnet_tpu_torch import generate_file
+
+    n_cards = torch.cuda.device_count()
+    for mode, cfg, events, n_events, dims, shape, form in (
+            ("tp", TP_CFG, "train.usef", TRAIN_EVENTS, 2, (1, 1, 2),
+             "data 1 x model 2"),
+            ("sp", SP_CFG, "sp_train.usef", SP_EVENTS, 3, (1, 2, 1),
+             "data 1 x spatial 2")):
+        t0 = time.time()
+        torch.cuda.empty_cache()
+        cfg_path = os.path.join(WORK, f"{mode}.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        S = cfg["data"]["image_size"]
+        path = os.path.join(WORK, events)
+        if not os.path.exists(path):  # phase 7 wrote the 2D one
+            generate_file(path, n_events, seed=SEED + 41, shape=(S,) * dims,
+                          planes=tuple(cfg["data"]["planes"]))
+        base = [f"data.input_files={path}", "data.synthetic=false"]
+        if PARALLEL_ONLY and n_cards >= 2:
+            print(f"[{mode}]      {form} as two gloo ranks on one card: not "
+                  f"run (--parallel-only on {n_cards} cards runs the NCCL "
+                  f"legs alone)", flush=True)
+        else:
+            gloo_leg(mode, cfg, cfg_path, base, shape, form, n_events, dims,
+                     fused_mod, dev, card)
+            if mode == "sp":
+                sp_f32_leg(cfg_path, base, fused_mod, dev, card)
+        if n_cards < 2:
+            print(f"[{mode}]      NCCL across cards (data 2 x "
+                  f"{form.split(' x ')[1]} on 4 cards, data 1 on 2): not run "
+                  f"({n_cards} device)", flush=True)
+        else:
+            nccl_leg(mode, cfg_path, base, shape, n_events, dims, fused_mod,
+                     dev, card, n_cards)
+        print(f"[{mode}]      phase {13 if mode == 'tp' else 14} wall "
+              f"{time.time() - t0:.1f} s | {card}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch")
@@ -2386,6 +2713,9 @@ def main():
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
+    if PARALLEL_ONLY:
+        parallel_phase(fused_mod, card, dev)
+        return
     cfg_path = os.path.join(WORK, "flagship.json")
     with open(cfg_path, "w") as f:
         json.dump(FLAGSHIP, f)
@@ -2510,6 +2840,9 @@ def main():
     # 12. BASELINE config 3, multi-plane
     mp_phase(fused_mod, card, dev)
 
+    # 13-14. tensor parallelism and the spatial halo exchange
+    parallel_phase(fused_mod, card, dev)
+
     leaked = sorted(m for m in sys.modules if m in ("jax", "uresnet_tpu")
                     or m.startswith(("jax.", "jaxlib", "uresnet_tpu.")))
     if leaked:
@@ -2540,8 +2873,11 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"] and len(sys.argv) == 4:
-        raise SystemExit(dp_worker(*sys.argv[2:4]))
+        worker = mesh_worker if sys.argv[2] in ("tp", "sp") else dp_worker
+        raise SystemExit(worker(*sys.argv[2:4]))
     KERNELS_ONLY = sys.argv[1:] == ["--kernels-only"]
-    if sys.argv[1:] not in ([], ["--kernels-only"]):
-        raise SystemExit(f"usage: {sys.argv[0]} [--kernels-only]")
+    PARALLEL_ONLY = sys.argv[1:] == ["--parallel-only"]
+    if sys.argv[1:] not in ([], ["--kernels-only"], ["--parallel-only"]):
+        raise SystemExit(f"usage: {sys.argv[0]} [--kernels-only | "
+                         f"--parallel-only]")
     main()

@@ -340,13 +340,14 @@ def _bf16_head(params):
 def _port_head(monkeypatch, params, state, x, cfg=HEAD_CFG):
     """The port's logits, and the head's bf16 input and f32 weight."""
     heads = []
-    real = uresnet_mod.conv  # in models/uresnet.py only the head calls it
+    real = uresnet_mod.BlockCtx.conv  # every conv of the forward
 
-    def head_conv(h, p, **kw):
-        heads.append((h, p))
-        return real(h, p, **kw)
+    def head_conv(ctx, h, p, *args, **kw):
+        if p["w"].shape[-1] == cfg.num_class:  # only the head's
+            heads.append((h, p))
+        return real(ctx, h, p, *args, **kw)
 
-    monkeypatch.setattr(uresnet_mod, "conv", head_conv)
+    monkeypatch.setattr(uresnet_mod.BlockCtx, "conv", head_conv)
     with torch.no_grad():
         got, _ = _model(cfg, params, state)(T(x))
     (h, p), = heads

@@ -29,8 +29,6 @@ are compared at 1e-5 (f32).
 import json
 import os
 import signal
-import socket
-import subprocess
 import sys
 import time
 
@@ -185,39 +183,22 @@ def _worker(mode, cfg_path, parity_path, outdir):
 # -- the tests ------------------------------------------------------------------
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _spawn(mode, dist_run):
-    port = _free_port()
-    procs = []
-    for rank in (0, 1):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
-                   LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(port), OMP_NUM_THREADS="1")
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), mode,
-             dist_run["cfg"], dist_run["parity"], dist_run["outdir"]], env=env, cwd=ROOT, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    return procs
+    from uresnet_tpu_torch.parallel.mesh import start_local
+
+    return start_local(
+        [sys.executable, os.path.abspath(__file__), mode, dist_run["cfg"],
+         dist_run["parity"], dist_run["outdir"]], 2,
+        env=dict(os.environ, OMP_NUM_THREADS="1"), cwd=ROOT)
 
 
 def _join(procs, timeout=300):
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for rank, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {rank} failed:\n{out}"
-    return outs
+    from uresnet_tpu_torch.parallel.mesh import join_local
+
+    res = join_local(procs, timeout)
+    for rank, (rc, out) in enumerate(res):
+        assert rc == 0, f"rank {rank} failed:\n{out}"
+    return [out for _, out in res]
 
 
 def _load(outdir, mode):

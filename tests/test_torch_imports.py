@@ -68,8 +68,12 @@ def test_no_import_names_the_jax_package(path):
 
 
 def test_walk_covers_parallel():
-    """The walk above reaches the data-parallel package, so its modules are
-    imported in the fresh interpreter and their AST checked too."""
-    assert {"uresnet_tpu_torch.parallel",
-            "uresnet_tpu_torch.parallel.mesh"} <= set(MODULES)
-    assert os.path.join(PKG, "parallel", "mesh.py") in _port_files()
+    """The walk above reaches the parallel package and the integration
+    hooks, so their modules are imported in the fresh interpreter and their
+    AST checked too."""
+    assert {"uresnet_tpu_torch.parallel", "uresnet_tpu_torch.parallel.mesh",
+            "uresnet_tpu_torch.parallel.tp", "uresnet_tpu_torch.parallel.halo",
+            "uresnet_tpu_torch.graft_entry"} <= set(MODULES)
+    for name in ("mesh.py", "tp.py", "halo.py"):
+        assert os.path.join(PKG, "parallel", name) in _port_files()
+    assert os.path.join(PKG, "graft_entry.py") in _port_files()

@@ -228,21 +228,28 @@ def test_freeze_prunes_and_keeps(jax_run):
             assert not torch.equal(p.detach(), before[k]), k
 
 
-@pytest.mark.parametrize("field,value,error,match", [
-    pytest.param("parallel.data", 2, ValueError, "needs 2 devices, have 1",
+@pytest.mark.parametrize("fields,error,match", [
+    pytest.param({"parallel.data": 2}, ValueError, "needs 2 devices, have 1",
                  id="parallel.data-2"),
-    pytest.param("parallel.spatial", 2, NotImplementedError, "ROADMAP",
-                 id="parallel.spatial-2"),
-    pytest.param("parallel.model", 2, NotImplementedError, "ROADMAP",
-                 id="parallel.model-2")])
-def test_refuses_unported(tmp_path, field, value, error, match):
-    """Spatial and model parallelism are not ported; a data axis other
-    than the world size (1 in a process with no group) is the JAX mesh's
-    error: a run never goes quietly on fewer devices."""
+    pytest.param({"parallel.spatial": 2}, ValueError,
+                 "needs 2 devices, have 1", id="parallel.spatial-2"),
+    pytest.param({"parallel.model": 2}, ValueError, "needs 2 devices, have 1",
+                 id="parallel.model-2"),
+    pytest.param({"parallel.spatial": 2, "parallel.model": 2}, ValueError,
+                 "cannot be combined", id="parallel.spatial-2-model-2"),
+    pytest.param({"parallel.model": 2, "model.pack": True}, ValueError,
+                 "requires the canonical layout", id="parallel.model-2-pack")])
+def test_refuses_unported(tmp_path, fields, error, match):
+    """A mesh whose product differs from the world size (1 in a process
+    with no group) is the JAX mesh's error: a run never goes quietly on
+    fewer devices. Spatial x model meshes and tensor parallelism with the
+    packed layout are refused as the JAX trainer refuses them, before any
+    mesh is made."""
     cfg = tiny_cfg(tmp_path)
-    section, name = field.split(".")
-    cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(
-        getattr(cfg, section), **{name: value})})
+    for field, value in fields.items():
+        section, name = field.split(".")
+        cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(
+            getattr(cfg, section), **{name: value})})
     with pytest.raises(error, match=match):
         Trainer(cfg, device="cpu")
 

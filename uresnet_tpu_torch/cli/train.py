@@ -14,7 +14,10 @@ summary window only, inside a ``torch.profiler`` trace written to DIR
 
 ``--distributed`` joins the process group of a ``torchrun`` launch (one
 process per device, parallel/mesh.py): NCCL on ``cuda:LOCAL_RANK``, or
-gloo with ``--device cpu``. Without the torchrun environment it exits 2;
+gloo with ``--device cpu``. The launch's processes form the config's
+(data, spatial, model) mesh: ``parallel.spatial`` splits H (2D) or D (3D)
+with halo exchanges, ``parallel.model`` the conv channels
+(``parallel.data`` 0 takes the rest of the world). Without the torchrun environment it exits 2;
 it never falls back to one process. Rank 0 alone writes logs,
 checkpoints and the ``--profile`` trace.
 """
@@ -41,7 +44,8 @@ def main(argv=None):
                    help="torch device to train on (default: cuda; the CPU "
                         "only when asked with --device cpu)")
     p.add_argument("--distributed", action="store_true",
-                   help="data-parallel training, one process per device, "
+                   help="parallel training over the (data, spatial, model) "
+                        "mesh of parallel.*, one process per device, "
                         "launched by torchrun (NCCL on cuda:LOCAL_RANK, "
                         "gloo with --device cpu)")
     p.add_argument("--profile", default=None, metavar="DIR",
@@ -78,7 +82,8 @@ def _train(cfg, args, device) -> int:
     trainer = Trainer(cfg, device=device)
     m = trainer.mesh
     print(f"device: {trainer.device}"
-          + (f" rank: {m.rank} world: {m.world}" if m.group is not None
+          + (f" rank: {m.rank} world: {m.world} mesh (data, spatial, model):"
+             f" {m.data}x{m.spatial}x{m.model}" if m.group is not None
              else ""), flush=True)
     if args.profile:
         from uresnet_tpu_torch.engine.profiling import trace

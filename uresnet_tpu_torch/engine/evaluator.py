@@ -633,6 +633,9 @@ def run_inference(
     ``tiled=True``: the full-coverage pass (`_run_inference_tiled`); npz
     coords are then ORIGINAL detector coords and the metrics are over the
     exported charge pixels.
+
+    The rank that calls it scores the whole file. Under a model axis the
+    state is gathered first, so every rank of that axis calls it.
     """
     if fmt not in ("npz", "usef"):
         raise ValueError(f"unknown score export format {fmt!r}")
@@ -658,7 +661,7 @@ def run_inference(
                       num_class=num_class, usef_events=[],
                       npz_columns=([],) * 6)
         return metrics
-    logits_fn = build_logits_fn(cfg, ts.model)
+    logits_fn = build_logits_fn(cfg, trainer.gather_state(ts).model)
     if tiled:
         return _run_inference_tiled(trainer, logits_fn, input_file,
                                     output_file, fmt=fmt, bs_events=bs_events)
@@ -761,13 +764,15 @@ def evaluate_dataset(trainer, ts, *,
     ``num_batches=k``: k batches off the cycling loader, per-batch metric
     means of the global batch, for quick spot checks.
 
-    Under data parallelism each rank reads its shard (every world-th
-    event) and runs the same, host-independent number of batches; a
-    shorter shard masks more rows. The counts are summed over the ranks,
+    Under a mesh the state is gathered (a collective under a model axis)
+    and the evaluation is data-parallel over the whole world: each rank
+    reads its shard (every world-th event) at the training's rows per data
+    index a batch, and runs the same, host-independent number of batches;
+    a shorter shard masks more rows. The counts are summed over the ranks,
     so every rank returns the same dict, with ``n_events`` the files'
-    event count."""
-    logits_fn = build_logits_fn(trainer.cfg, ts.model)
-    loader = trainer.make_loader(train=False)
+    event count. The sampled mode reads each data index's batches."""
+    logits_fn = build_logits_fn(trainer.cfg, trainer.gather_state(ts).model)
+    loader = trainer.make_loader(train=False, world=num_batches is None)
     _say_decoder(loader)
     if num_batches is not None:
         agg: Dict[str, float] = {}
@@ -786,8 +791,8 @@ def evaluate_dataset(trainer, ts, *,
     cfgd = trainer.cfg.data
     n_planes = len(cfgd.planes)
     mesh = trainer.mesh
-    shard_count, rank = mesh.data, mesh.rank
-    epb_local = max(1, cfgd.batch_size // n_planes // shard_count)
+    shard_count, rank = mesh.world, mesh.rank
+    epb_local = max(1, cfgd.batch_size // n_planes // mesh.data)
     # host-independent totals (the loader shards round-robin): every rank
     # runs the same number of steps, the shorter shards mask more rows
     n_total = loader.total_events()

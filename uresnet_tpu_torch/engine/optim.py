@@ -15,12 +15,15 @@ elementwise passes over the trainable leaves.
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import (Callable, Collection, Dict, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from uresnet_tpu_torch.config import OptimConfig
+from uresnet_tpu_torch.parallel.mesh import Axis
 
 Leaves = Dict[str, torch.Tensor]
 
@@ -91,21 +94,32 @@ def adam_init(params: Leaves) -> AdamState:
 
 
 def adam_update(grads: Leaves, opt: AdamState, params: Leaves,
-                cfg: OptimConfig, freeze: Optional[Dict[str, bool]] = None
-                ) -> Tuple[Leaves, AdamState]:
+                cfg: OptimConfig, freeze: Optional[Dict[str, bool]] = None,
+                *, norm_axis: Optional[Axis] = None,
+                sliced: Collection[str] = ()) -> Tuple[Leaves, AdamState]:
     """Adam or RMSProp (cfg.optimizer) -> (new params, new state), new
     tensors for the trainable leaves. Frozen leaves are left out: their
     params, ``mu`` and ``nu`` come back as the very tensors given, and
     their grads are not in the global norm of ``grad_clip_norm``. Weight
-    decay is added to the update direction ``u``, as the JAX package does."""
+    decay is added to the update direction ``u``, as the JAX package does.
+
+    Under tensor parallelism (parallel/tp.py) the leaves named in
+    ``sliced`` are this rank's slices of the model axis ``norm_axis``: the
+    global norm sums their squares over the axis, and counts each whole
+    (replicated) leaf once."""
     names = [k for k in params if not (freeze and freeze[k])]
     g = [grads[k] for k in names]
     p = [params[k] for k in names]
     step = opt.step + 1
     lr = make_schedule(cfg)(step)
     if cfg.grad_clip_norm > 0:
-        sq = torch.stack([torch.sum(torch.square(x.float())) for x in g])
-        gnorm = torch.sqrt(torch.sum(sq))
+        sq = [torch.sum(torch.square(x.float())) for x in g]
+        if norm_axis is not None and norm_axis.group is not None:
+            part = torch.stack([x for k, x in zip(names, sq) if k in sliced]
+                               + [sq[0].new_zeros(())]).sum()
+            dist.all_reduce(part, op=dist.ReduceOp.SUM, group=norm_axis.group)
+            sq = [x for k, x in zip(names, sq) if k not in sliced] + [part]
+        gnorm = torch.sqrt(torch.sum(torch.stack(sq)))
         scale = torch.clamp(cfg.grad_clip_norm / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
         g = [x * scale for x in g]

@@ -32,13 +32,28 @@ each rank applies its rows, the gradients (and the logged loss) are
 averaged over the ranks before the clip and Adam, and the summary and
 eval metrics come from confusion counts summed over the ranks. Rank 0
 alone writes logs, checkpoints and traces; a SIGTERM on any rank stops
-every rank after the same step. Spatial and model parallelism raise
-(ROADMAP.md).
+every rank after the same step.
+
+Spatial and tensor parallelism (parallel/halo.py, parallel/tp.py) add the
+mesh's other two axes; the data index ``d`` of a rank takes the place of
+its rank above. Under a spatial axis every rank of a data index densifies
+that index's whole batch, with the same augmentation, and keeps its own H
+(2D) or D (3D) rows. Under a model axis the ranks of a data index read
+the same batch and hold channel slices of the params, BN state and Adam
+moments. Either way the BN statistics, the gradients, the loss and the
+counts are reduced over the mesh's batch group (data x spatial of this
+model index): a rank's loss is its term of the global loss, exactly as a
+data-parallel rank's. ``save`` gathers the slices before rank 0 writes the
+JAX layout; ``restore`` slices the whole file. Evaluation runs on the
+gathered state, the file sharded over the whole world
+(engine/evaluator.py). Spatial x model meshes, and tensor parallelism with
+``model.pack``, are refused as the JAX trainer refuses them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import signal
 import time
@@ -69,7 +84,8 @@ from uresnet_tpu_torch.models.convert import (flatten_tree, jax_train_state,
                                               load_jax_train_state)
 from uresnet_tpu_torch.models.fold import KERNEL_BACKENDS
 from uresnet_tpu_torch.models.uresnet import UResNet
-from uresnet_tpu_torch.parallel.mesh import (all_reduce_counts,
+from uresnet_tpu_torch.parallel import tp
+from uresnet_tpu_torch.parallel.mesh import (Mesh, all_reduce_counts,
                                              all_reduce_max, all_reduce_mean,
                                              all_reduce_sum, broadcast,
                                              make_mesh)
@@ -86,12 +102,43 @@ def _key_seed(key: np.ndarray) -> int:
     return (int(key[0]) << 32) | int(key[1])
 
 
+_IMAGE_KEYS = ("data", "label", "weight")
+
+
 class Trainer:
-    def __init__(self, cfg: Config, *, device="cuda"):
+    def __init__(self, cfg: Config, *, device="cuda",
+                 mesh: Optional[Mesh] = None):
         # the process group, if any, is the caller's: cli.train
         # --distributed joins it (parallel/mesh.py init_distributed)
-        self.mesh = make_mesh(cfg.parallel.data, max(1, cfg.parallel.spatial),
-                              max(1, cfg.parallel.model))
+        n_spatial = mesh.spatial if mesh else max(1, cfg.parallel.spatial)
+        n_model = mesh.model if mesh else max(1, cfg.parallel.model)
+        if n_model > 1 and cfg.model.pack:
+            raise ValueError(
+                "parallel.model > 1 (tensor parallelism) requires the "
+                "canonical layout — set model.pack: false (the JAX "
+                "package's packed space-to-depth kernels are derived by "
+                "channel-phase relabeling gathers, which contradict a "
+                "channel sharding; the port keeps its refusal)")
+        if n_model > 1 and n_spatial > 1:
+            raise ValueError(
+                "parallel.spatial > 1 and parallel.model > 1 cannot be "
+                "combined: XLA's SPMD partitioner miscompiles convs that "
+                "are both spatially and output-feature partitioned, so the "
+                "JAX package refuses the combination (tests/test_tp.py::"
+                "test_spatial_x_model_conv_miscompile) and the port keeps "
+                "the refusal. Use data x spatial or data x model meshes.")
+        if cfg.model.base_filters % n_model:
+            raise ValueError(
+                f"model.base_filters ({cfg.model.base_filters}) must be "
+                f"divisible by parallel.model ({n_model}): every conv but "
+                f"the head is column-parallel over the model axis")
+        edge = n_spatial * 2 ** cfg.model.depth
+        if n_spatial > 1 and cfg.data.image_size % edge:
+            raise ValueError(
+                f"data.image_size ({cfg.data.image_size}) must be a "
+                f"multiple of parallel.spatial x 2^model.depth ({edge}): "
+                f"every shard's rows must halve evenly at each level")
+        self.mesh = mesh or make_mesh(cfg.parallel.data, n_spatial, n_model)
         if cfg.data.batch_size % self.mesh.data:
             raise ValueError(
                 f"data.batch_size ({cfg.data.batch_size}) must be divisible "
@@ -112,6 +159,14 @@ class Trainer:
             names = [n for n, _ in self._new_model(torch.device("meta"))
                      .named_parameters()]
             self._freeze = freeze_mask(names, cfg.optim.freeze)
+        # {leaf: dim} of the channel-sliced leaves (parallel/tp.py)
+        self._tp_dims = {}
+        if self.mesh.model > 1:
+            meta = self._new_model(torch.device("meta"))
+            self._tp_dims = tp.shard_dims(
+                {k: v.shape for k, v in itertools.chain(
+                    meta.named_parameters(), meta.named_buffers())},
+                self.mesh.model)
         self.loader = None
         self.val_loader = None
 
@@ -124,15 +179,57 @@ class Trainer:
                        device=device)
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
+        """The seed's initial state; under a model axis, this rank's
+        channel slices of the whole model's."""
         seed = self.cfg.train.seed if seed is None else seed
         model = self._new_model(self.device, seed)
+        if self._tp_dims:
+            with torch.no_grad():
+                tensors = dict(itertools.chain(model.named_parameters(),
+                                               model.named_buffers()))
+                for k, v in tp.shard_state({k: t.data for k, t in
+                                            tensors.items()},
+                                           self.mesh.model_axis).items():
+                    tensors[k].data = v
         for name, p in model.named_parameters():
             p.requires_grad_(not (self._freeze and self._freeze[name]))
         params = {k: v.detach() for k, v in model.named_parameters()}
         return TrainState(model=model, opt=adam_init(params),
                           key=np.array([seed & 0xFFFFFFFF, 0], np.uint32))
 
+    def gather_state(self, ts: TrainState) -> TrainState:
+        """The whole train state on every rank: under a model axis a new
+        model and moments gathered from the ranks' slices (a collective:
+        every rank of the model axis calls it); else ``ts`` itself."""
+        if not self._tp_dims:
+            return ts
+        axis = self.mesh.model_axis
+        m = ts.model
+        tensors = tp.gather_state(
+            {k: v.detach() for k, v in itertools.chain(
+                m.named_parameters(), m.named_buffers())},
+            self._tp_dims, axis)
+        moments = {kind: tp.gather_state(getattr(ts.opt, kind),
+                                         self._tp_dims, axis)
+                   for kind in ("mu", "nu")}
+        whole = self._new_model(self.device)
+        with torch.no_grad():
+            for k, t in itertools.chain(whole.named_parameters(),
+                                        whole.named_buffers()):
+                t.copy_(tensors[k])
+        return TrainState(model=whole, opt=ts.opt._replace(**moments),
+                          key=ts.key)
+
     # -- step functions ------------------------------------------------------
+
+    def _local_rows(self, batch: Dict) -> Dict:
+        """Under a spatial axis, this rank's rows (dim 1: H in 2D, D in
+        3D) of a dense batch's images."""
+        axis = self.mesh.spatial_axis
+        if axis.size == 1:
+            return batch
+        return {k: tp.local_slice(v, 1, axis) if k in _IMAGE_KEYS else v
+                for k, v in batch.items()}
 
     def _prepare(self, batch: Dict, decisions=None) -> Dict:
         """A sparse batch is densified on the device; ``decisions`` apply
@@ -149,28 +246,30 @@ class Trainer:
     def _loss_fn(self, model: UResNet, batch: Dict):
         """(loss, logits, new BN state) of one batch in train mode.
 
-        Under DP each rank's loss is its term of ``world`` times the global
-        batch's loss, so that the mean of the ranks' losses and gradients
-        is the global loss and its gradient: with 'mean' the local mean
-        (equal shards), with 'weight_sum' the local sum over the global
-        batch's weight sum."""
-        group = self.mesh.group
+        Each rank of the mesh's batch group (data x spatial, size n) holds
+        an equal share of the global batch's pixels, and its loss is its
+        term of n times the global batch's loss, so that the mean of the
+        ranks' losses and gradients is the global loss and its gradient:
+        with 'mean' the local mean, with 'weight_sum' the local sum over the
+        global batch's weight sum. The ranks of a model axis compute the
+        same loss."""
+        group = self.mesh.batch.group
         normalize = self.cfg.train.loss_normalize
-        logits, new_state = model(batch["data"], train=True, group=group)
+        logits, new_state = model(batch["data"], train=True, mesh=self.mesh)
         if group is not None and normalize == "weight_sum":
             w = batch["weight"].float()
             den = all_reduce_sum(w.sum(), group)
             loss = (torch.sum(w * softmax_xent_per_pixel(logits, batch["label"]))
-                    * self.mesh.data / torch.clamp(den, min=1e-6))
+                    * self.mesh.batch.size / torch.clamp(den, min=1e-6))
         else:
             loss = weighted_softmax_xent(logits, batch["label"],
                                          batch["weight"], normalize=normalize)
         return loss, logits, new_state
 
-    def _global_counts(self, logits, batch, *, loss_sums=False
+    def _global_counts(self, logits, batch, group, *, loss_sums=False
                        ) -> Dict[str, np.ndarray]:
         """The batch's confusion counts (and with ``loss_sums`` the masked
-        xent sums of engine/evaluator.py), summed over the data group."""
+        xent sums of engine/evaluator.py), summed over ``group``."""
         counts = {k: v.cpu() for k, v in segmentation_counts(
             logits, batch["label"], batch["data"],
             num_class=self.cfg.model.num_class).items()}
@@ -179,8 +278,7 @@ class Trainer:
             counts["loss_num"] = torch.sum(
                 w * softmax_xent_per_pixel(logits, batch["label"])).cpu()
             counts["weight_sum"] = torch.sum(w).cpu()
-        return all_reduce_counts(reduce_counts(counts), self.mesh.group,
-                                 self.device)
+        return all_reduce_counts(reduce_counts(counts), group, self.device)
 
     def _train_step(self, ts: TrainState, batch: Dict,
                     with_metrics: bool = True) -> Tuple[TrainState, Dict]:
@@ -188,17 +286,20 @@ class Trainer:
         mesh = self.mesh
         decisions = None
         if cfg.data.augment:
-            # drawn for the global batch; this rank applies its own rows
+            # drawn for the global batch; this data index applies its rows
             gen = torch.Generator(device=self.device)
             gen.manual_seed(_key_seed(ts.key))
             B = next(v for v in batch.values() if torch.is_tensor(v)).shape[0]
+            d = mesh.index[0]
             decisions = draw_decisions(gen, B * mesh.data, cfg.model.dims)[
-                :, mesh.rank * B:(mesh.rank + 1) * B]
+                :, d * B:(d + 1) * B]
         sparse = "coords" in batch
         batch = self._prepare(batch, decisions if sparse else None)
         if decisions is not None and not sparse:
             batch = augment_batch(batch, dims=cfg.model.dims,
                                   decisions=decisions)
+        batch = self._local_rows(batch)
+        group = mesh.batch.group
         model = ts.model
         params = dict(model.named_parameters())
         trainable = [k for k, p in params.items() if p.requires_grad]
@@ -206,15 +307,16 @@ class Trainer:
             loss, logits, new_state = self._loss_fn(model, batch)
             grads = torch.autograd.grad(loss, [params[k] for k in trainable])
         loss = loss.detach()
-        if mesh.group is not None:
+        if group is not None:
             # one bucket: the gradients and the logged loss, averaged
             loss = loss.reshape(1).clone()
-            all_reduce_mean([*grads, loss], mesh.group)
+            all_reduce_mean([*grads, loss], group)
             loss = loss[0]
         new_params, opt = adam_update(
             dict(zip(trainable, grads)), ts.opt,
             {k: p.detach() for k, p in params.items()}, cfg.optim,
-            freeze=self._freeze)
+            freeze=self._freeze, norm_axis=mesh.model_axis,
+            sliced=self._tp_dims)
         with torch.no_grad():
             for k, p in params.items():
                 p.data = new_params[k]
@@ -222,9 +324,9 @@ class Trainer:
             for k, v in flatten_tree(new_state).items():
                 flat[k].data = v
         metrics = {"loss": loss}
-        if with_metrics and mesh.group is not None:
+        if with_metrics and group is not None:
             metrics.update(metrics_from_counts(
-                self._global_counts(logits.detach(), batch)))
+                self._global_counts(logits.detach(), batch, group)))
         elif with_metrics:
             metrics.update(segmentation_metrics(
                 logits.detach(), batch["label"], batch["data"],
@@ -247,15 +349,17 @@ class Trainer:
         """The eval metrics and loss of one batch over the BN-folded forward
         (equal to the eval forward). A pass over several batches folds once
         and passes its ``logits_fn`` (engine/export.py ``build_logits_fn``);
-        without one, the model of ``ts`` is folded here. Under DP the
-        metrics are the global batch's, from counts summed over the ranks
-        (host floats)."""
+        without one, the gathered model of ``ts`` is folded here (a
+        collective under a model axis). ``batch`` is this data index's
+        whole batch; the metrics are the global batch's, from counts summed
+        over the data axis (host floats)."""
         if logits_fn is None:
-            logits_fn = build_logits_fn(self.cfg, ts.model)
+            logits_fn = build_logits_fn(self.cfg, self.gather_state(ts).model)
         batch = self._prepare(batch)
         logits = logits_fn(batch["data"])
-        if self.mesh.group is not None:
-            counts = self._global_counts(logits, batch, loss_sums=True)
+        group = self.mesh.data_axis.group
+        if group is not None:
+            counts = self._global_counts(logits, batch, group, loss_sums=True)
             metrics = metrics_from_counts(counts)
             metrics["loss"] = loss_from_counts(
                 counts, self.cfg.train.loss_normalize)
@@ -269,15 +373,24 @@ class Trainer:
 
     # -- data -----------------------------------------------------------------
 
-    def make_loader(self, *, train: bool = True, start_event: int = 0):
+    def make_loader(self, *, train: bool = True, start_event: int = 0,
+                    world: bool = False):
+        """The loader of this rank's data index: every ``data``-th event,
+        ``data.batch_size / data`` rows a batch. ``world``: every rank its
+        own share of the events, at the same rows a batch (the evaluation
+        of engine/evaluator.py ``evaluate_dataset``)."""
         dcfg = self.cfg.data
         if not train and dcfg.synthetic and not dcfg.input_files:
             # held-out synthetic validation: another generator seed
             dcfg = dataclasses.replace(dcfg, seed=dcfg.seed + 10007)
+        shard = (self.mesh.index[0], self.mesh.data)
+        if world:
+            shard = (self.mesh.rank, self.mesh.world)
+            dcfg = dataclasses.replace(dcfg, batch_size=dcfg.batch_size
+                                       // self.mesh.data * self.mesh.world)
         return make_batch_loader(dcfg, num_class=self.cfg.model.num_class,
                                  train=train, ndims=self.cfg.model.dims,
-                                 start_event=start_event,
-                                 shard=(self.mesh.rank, self.mesh.data))
+                                 start_event=start_event, shard=shard)
 
     def device_batch(self, batch: Dict) -> Dict:
         """Host batch (numpy) -> tensors on the trainer's device."""
@@ -286,6 +399,13 @@ class Trainer:
     # -- checkpoint -----------------------------------------------------------
 
     def save(self, ts: TrainState, step: int, data_cursor: int = 0) -> str:
+        """Rank 0 writes the whole state in the JAX layout; every rank
+        calls it (under a model axis it gathers the slices first) and gets
+        the path."""
+        ts = self.gather_state(ts)
+        if not self.mesh.leader:
+            return os.path.join(self.cfg.train.checkpoint_dir,
+                                f"step_{step:08d}.npz")
         tree = {"train_state": jax_train_state(ts.model, ts.opt, ts.key),
                 "meta": {"step": np.int64(step),
                          "data_cursor": np.int64(data_cursor)}}
@@ -311,10 +431,17 @@ class Trainer:
                 f"no checkpoint in {self.cfg.train.checkpoint_dir!r}{hint}")
         ts = self.init_state()
         params_only = self._params_only_path(path)
-        template = {"train_state": jax_train_state(ts.model, ts.opt, ts.key),
+        whole = ts
+        if self._tp_dims:  # the file holds whole leaves: a whole template
+            model = self._new_model(torch.device("cpu"))
+            whole = TrainState(model=model, opt=adam_init(dict(
+                model.named_parameters())), key=ts.key)
+        template = {"train_state": jax_train_state(whole.model, whole.opt,
+                                                   whole.key),
                     "meta": {"step": np.int64(0), "data_cursor": np.int64(0)}}
         tree = ckpt.load_checkpoint(path, template, partial=params_only)
-        opt, key = load_jax_train_state(ts.model, tree["train_state"])
+        opt, key = load_jax_train_state(ts.model, tree["train_state"],
+                                        tp=self.mesh.model_axis)
         if params_only:
             return ts, 0, 0
         return (TrainState(model=ts.model, opt=opt, key=key),
@@ -325,15 +452,18 @@ class Trainer:
                     ) -> Tuple[TrainState, int, int]:
         """Rank 0's params, BN state, Adam state, key, step and data cursor
         on every rank (after init and after restore), so the replicas start
-        equal whatever each rank found on its disk."""
-        group = self.mesh.group
+        equal whatever each rank found on its disk: the tensors from the
+        first rank of each batch group (each model index its own slices),
+        the counters from rank 0."""
         m = ts.model
-        broadcast([*m.parameters(), *m.buffers(), *ts.opt.mu.values(),
-                   *ts.opt.nu.values()], group)
+        if self.mesh.batch.group is not None:
+            broadcast([*m.parameters(), *m.buffers(), *ts.opt.mu.values(),
+                       *ts.opt.nu.values()], self.mesh.batch.group,
+                      src=self.mesh.batch_root)
         meta = torch.tensor([ts.opt.step, int(ts.key[0]), int(ts.key[1]),
                              start_step, cursor], dtype=torch.int64,
                             device=self.device)
-        broadcast([meta], group)
+        broadcast([meta], self.mesh.group)
         step, k0, k1, start_step, cursor = meta.tolist()
         return (TrainState(model=m, opt=ts.opt._replace(step=step),
                            key=np.array([k0, k1], np.uint32)),
@@ -432,7 +562,7 @@ class Trainer:
                 if cfg.train.val_iter and step % cfg.train.val_iter == 0:
                     val_logger.log(step, self.validate(
                         ts, num_batches=cfg.train.val_batches))
-                if (cfg.train.checkpoint_iter and mesh.leader
+                if (cfg.train.checkpoint_iter
                         and step % cfg.train.checkpoint_iter == 0):
                     self.save(ts, step, cursor_now)
                 hit = preempted["flag"]
@@ -441,16 +571,15 @@ class Trainer:
                         torch.tensor([float(hit)], device=self.device),
                         mesh.group).item())
                 if hit:
+                    path = self.save(ts, step, cursor_now)
                     if mesh.leader:
-                        path = self.save(ts, step, cursor_now)
                         print(f"[uresnet_tpu_torch] SIGTERM: checkpoint saved "
                               f"at step {step} -> {path}; resume with "
                               f"--resume", flush=True)
                     last["preempted_at_step"] = float(step)
                     break
             else:
-                if mesh.leader:
-                    self.save(ts, start_step + iters, cursor_now)
+                self.save(ts, start_step + iters, cursor_now)
         finally:
             if installed:
                 # a None handler was installed from C: restore the default
@@ -470,14 +599,15 @@ class Trainer:
         """In-loop validation: means of the metrics over ``num_batches``
         sampled held-out batches; with ``train.val_exact``, the
         exactly-once pass over the held-out set (``evaluate_dataset``).
-        Under DP every rank runs it (its metrics are all-reduced)."""
+        Under a mesh every rank runs it on the gathered state (its metrics
+        are all-reduced)."""
         if self.cfg.train.val_exact:
             from uresnet_tpu_torch.engine.evaluator import evaluate_dataset
 
             return evaluate_dataset(self, ts)
         if self.val_loader is None:
             self.val_loader = self.make_loader(train=False)
-        logits_fn = build_logits_fn(self.cfg, ts.model)
+        logits_fn = build_logits_fn(self.cfg, self.gather_state(ts).model)
         agg: Dict[str, float] = {}
         for _ in range(num_batches):
             batch = self.val_loader.next()

@@ -23,30 +23,80 @@ from typing import Optional
 import torch
 from torch import nn
 
-from uresnet_tpu_torch.ops.conv import conv, conv_init, conv_transpose
+from uresnet_tpu_torch.ops.conv import (conv, conv_init, conv_transpose,
+                                        spatial_dims)
 from uresnet_tpu_torch.ops.norm import batch_norm, batch_norm_train, bn_init
+from uresnet_tpu_torch.parallel.halo import sharded_conv
+from uresnet_tpu_torch.parallel.mesh import Mesh
+from uresnet_tpu_torch.parallel.tp import copy_to_model, gather_channels
 
 
 @dataclass(frozen=True)
 class BlockCtx:
     """Static per-call context: dims, compute dtype, BN hyperparameters,
-    train or eval, and the data-parallel group whose global batch the
-    train-mode BN statistics span (None: this process's batch)."""
+    train or eval, and the parallel mesh (parallel/mesh.py; None: one
+    process).
+
+    Under the mesh the train-mode BN statistics span its batch group. With
+    a spatial axis every conv is the halo conv of parallel/halo.py on this
+    rank's rows. With a model axis every conv is column-parallel
+    (parallel/tp.py): it takes its whole input, `full`, and computes this
+    rank's slice of its output channels, so activations between convs are
+    channel slices."""
 
     dims: int = 2
     compute_dtype: torch.dtype = torch.bfloat16
     bn_eps: float = 1e-3
     bn_momentum: float = 0.99
     train: bool = False
-    group: Optional[object] = None
+    mesh: Optional[Mesh] = None
 
-    def conv(self, x, p, stride=1):
-        return conv(x, p, stride=stride, dims=self.dims,
-                    compute_dtype=self.compute_dtype)
+    @property
+    def group(self):
+        """The process group of the train-mode BN statistics."""
+        return None if self.mesh is None else self.mesh.batch.group
+
+    def _sliced(self, x, width: int) -> bool:
+        return (self.mesh is not None and self.mesh.model > 1
+                and x.shape[-1] != width)
+
+    def full(self, x, width: int):
+        """``x`` with all its ``width`` channels, as the input of
+        column-parallel convs: a channel slice is gathered and its
+        gradient summed over the model ranks; a whole tensor passes."""
+        if not self._sliced(x, width):
+            return x
+        axis = self.mesh.model_axis
+        return copy_to_model(gather_channels(x, axis), axis)
+
+    def gather(self, x, width: int):
+        """``x`` with all its ``width`` channels, as the input of a
+        replicated op: a channel slice is gathered, its gradient sliced."""
+        if not self._sliced(x, width):
+            return x
+        return gather_channels(x, self.mesh.model_axis)
+
+    def conv(self, x, p, stride=1, *, compute_dtype=None, precision=None):
+        cd = compute_dtype or self.compute_dtype
+        if self.mesh is None or self.mesh.spatial == 1:
+            return conv(x, p, stride=stride, dims=self.dims, compute_dtype=cd,
+                        precision=precision)
+        return self._halo(x, p, stride, "conv", cd, precision)
 
     def conv_t(self, x, p, stride=2):
-        return conv_transpose(x, p, stride=stride, dims=self.dims,
-                              compute_dtype=self.compute_dtype)
+        if self.mesh is None or self.mesh.spatial == 1:
+            return conv_transpose(x, p, stride=stride, dims=self.dims,
+                                  compute_dtype=self.compute_dtype)
+        return self._halo(x, p, stride, "convt", self.compute_dtype, None)
+
+    def _halo(self, x, p, stride, kind, compute_dtype, precision):
+        spatial_dims(x, self.dims)
+        y = sharded_conv(x, p["w"], axis=self.mesh.spatial_axis,
+                         stride=stride, kind=kind,
+                         compute_dtype=compute_dtype, precision=precision)
+        if "b" in p:
+            y = y + p["b"].to(y.dtype)
+        return y
 
 
 class Conv(nn.Module):
@@ -99,6 +149,7 @@ class ConvBN(nn.Module):
 
     def forward(self, x, ctx: BlockCtx, *, stride=1, relu=True,
                 transpose=False):
+        x = ctx.full(x, self.conv.w.shape[-2])
         if transpose:
             y = ctx.conv_t(x, self.conv.params(), stride=stride)
         else:
@@ -120,7 +171,8 @@ class ResBlock(nn.Module):
                      if in_ch != out_ch else None)
 
     def forward(self, x, ctx: BlockCtx):
-        y, s1 = self.cb1(x, ctx)
+        xf = ctx.full(x, self.cb1.conv.w.shape[-2])  # cb1's and proj's input
+        y, s1 = self.cb1(xf, ctx)
         y, s2 = self.cb2(y, ctx, relu=False)
-        shortcut = x if self.proj is None else ctx.conv(x, self.proj.params())
+        shortcut = x if self.proj is None else ctx.conv(xf, self.proj.params())
         return torch.relu(y + shortcut.to(y.dtype)), {"cb1": s1, "cb2": s2}

@@ -6,18 +6,22 @@ by unit name (``params['enc0_b0']['cb1']['conv']['w']``,
 parameters and buffers the same way with dots, so the mapping is the key
 path: parameters <-> params tree, buffers <-> state tree. A whole train
 state adds the JAX ``AdamState`` (``opt.step``, ``opt.mu``, ``opt.nu`` —
-moments keyed like the params tree) and the uint32[2] ``key``.
+moments keyed like the params tree) and the uint32[2] ``key``. Under
+tensor parallelism a module holds one model rank's channel slices; the
+loaders slice the whole JAX leaves for it (``tp``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from uresnet_tpu_torch.engine.optim import AdamState
+from uresnet_tpu_torch.parallel.mesh import Axis
+from uresnet_tpu_torch.parallel.tp import shard_state
 
 Tree = Dict[str, Any]
 
@@ -56,14 +60,22 @@ def jax_params(model: nn.Module) -> Tuple[Tree, Tree]:
                  for t in trees(model))
 
 
+def _local(flat: Dict[str, Any], tp: Optional[Axis]) -> Dict[str, Any]:
+    """Whole leaves -> this model rank's slices (parallel/tp.py)."""
+    return flat if tp is None or tp.size == 1 else shard_state(flat, tp)
+
+
 @torch.no_grad()
-def load_jax_params(model: nn.Module, params: Tree, state: Tree) -> None:
+def load_jax_params(model: nn.Module, params: Tree, state: Tree, *,
+                    tp: Optional[Axis] = None) -> None:
     """Copy a JAX (params, state) tree — numpy arrays or tensors — into the
     module, cast to each destination's dtype. Every parameter and buffer
-    must be given, with its shape; extra or missing leaves raise."""
-    for kind, src, dst in (("param", flatten_tree(params),
+    must be given, with its shape; extra or missing leaves raise. ``tp``
+    (the mesh's model axis): the module holds this rank's channel slices
+    (parallel/tp.py) and the tree the whole leaves, which are sliced."""
+    for kind, src, dst in (("param", _local(flatten_tree(params), tp),
                             dict(model.named_parameters())),
-                           ("state", flatten_tree(state),
+                           ("state", _local(flatten_tree(state), tp),
                             dict(model.named_buffers()))):
         if src.keys() != dst.keys():
             missing = sorted(dst.keys() - src.keys())
@@ -99,17 +111,22 @@ def jax_train_state(model: nn.Module, opt: AdamState,
             "key": np.asarray(key, np.uint32)}
 
 
-def load_jax_train_state(model: nn.Module, ts: Any) -> Tuple[AdamState, np.ndarray]:
+def load_jax_train_state(model: nn.Module, ts: Any, *,
+                         tp: Optional[Axis] = None
+                         ) -> Tuple[AdamState, np.ndarray]:
     """Load a JAX ``TrainState`` (or its fields as a dict, numpy or tensor
     leaves) into ``model``; returns its Adam state, with the moments as
-    f32 tensors on the model's device keyed by parameter name, and its key."""
+    f32 tensors on the model's device keyed by parameter name, and its key.
+    ``tp``: as `load_jax_params`; the moments are sliced as their params.
+    (The way back is `jax_train_state` of the gathered state,
+    engine/trainer.py ``Trainer.gather_state``.)"""
     f = _fields(ts)
-    load_jax_params(model, f["params"], f["model_state"])
+    load_jax_params(model, f["params"], f["model_state"], tp=tp)
     opt = _fields(f["opt"])
     names = dict(model.named_parameters())
     moments = {}
     for kind in ("mu", "nu"):
-        flat = flatten_tree(opt[kind])
+        flat = _local(flatten_tree(opt[kind]), tp)
         if flat.keys() != names.keys():
             raise KeyError(f"opt.{kind} does not match the model's params")
         moments[kind] = {k: (v if torch.is_tensor(v) else torch.from_numpy(

@@ -34,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from uresnet_tpu_torch.config import ModelConfig
 from uresnet_tpu_torch.models.blocks import BlockCtx, Conv, ConvBN, ResBlock
-from uresnet_tpu_torch.ops.conv import conv, head_precision
+from uresnet_tpu_torch.ops.conv import head_precision
 from uresnet_tpu_torch.utils.dtypes import canonical_dtype
 
 
@@ -83,15 +83,18 @@ class UResNet(nn.Module):
         self.head = Conv(cfg.final_kernel, f, cfg.num_class, use_bias=True,
                          **kw)
 
-    def forward(self, x: torch.Tensor, train: bool = False, group=None):
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None):
         """The BN-state tree is keyed as ``uresnet_apply``'s: new detached
-        running stats in train mode, the buffers in eval mode. ``group``: the
-        data-parallel group of the train-mode BN statistics."""
+        running stats in train mode, the buffers in eval mode. ``mesh``
+        (parallel/mesh.py): this rank's place in the parallel step; then
+        ``x`` is its share of the batch (its rows under a spatial axis),
+        the model holds its channel slices under a model axis
+        (parallel/tp.py), and the logits are whole in channels."""
         cfg = self.cfg
         ctx = BlockCtx(dims=cfg.dims,
                        compute_dtype=canonical_dtype(cfg.compute_dtype),
                        bn_eps=cfg.bn_eps, bn_momentum=cfg.bn_momentum,
-                       train=train, group=group)
+                       train=train, mesh=mesh)
         level, block = (remat_wrappers(cfg.remat)
                         if train and torch.is_grad_enabled()
                         else remat_wrappers(False))
@@ -120,12 +123,23 @@ class UResNet(nn.Module):
         for lvl in reversed(range(cfg.depth)):
             def dec(h, skip, lvl=lvl):
                 h = run(f"up{lvl}", h, stride=2, transpose=True)
-                h = torch.cat([h, skip.to(h.dtype)], dim=-1)
+                # the whole channels of each, in the concat's order
+                fl = cfg.base_filters * 2 ** lvl
+                h = torch.cat([ctx.full(h, fl), ctx.full(skip.to(h.dtype), fl)],
+                              dim=-1)
                 return run_blocks(f"dec{lvl}", h)
             h = level(dec)(h, skips[lvl])
         hd = canonical_dtype(cfg.head_dtype) if cfg.head_dtype else ctx.compute_dtype
-        logits = conv(h, self.head.params(), dims=cfg.dims, compute_dtype=hd,
-                      precision=head_precision(hd, ctx.compute_dtype))
+        head = self.head.params()
+        # the head is column-parallel where the model axis divides
+        # num_class, else whole on every rank
+        sliced = head["w"].shape[-1] != cfg.num_class
+        f = cfg.base_filters
+        h = ctx.full(h, f) if sliced else ctx.gather(h, f)
+        prec = head_precision(hd, ctx.compute_dtype)
+        logits = ctx.conv(h, head, compute_dtype=hd, precision=prec)
+        if sliced:
+            logits = ctx.gather(logits, cfg.num_class)
         return logits.float(), {k: new_state[k] for k in self._unit_order}
 
     @property

@@ -221,7 +221,8 @@ class _RoundOperand(torch.autograd.Function):
 
 def conv_general(x: torch.Tensor, w: torch.Tensor, *, stride: int,
                  compute_dtype: torch.dtype, kind: str = "conv",
-                 precision: Optional[torch.dtype] = None) -> torch.Tensor:
+                 precision: Optional[torch.dtype] = None,
+                 unpadded: Optional[int] = None) -> torch.Tensor:
     """The one conv entry point: (B, *S, C) x (*k, C, Co) -> (B, *S', Co),
     2 or 3 spatial axes.
 
@@ -229,7 +230,10 @@ def conv_general(x: torch.Tensor, w: torch.Tensor, *, stride: int,
     fractionally-strided conv (output ``stride`` x larger). 16-bit compute
     dtypes get the f32 weight gradient of `_ConvF32WGrad` (stock autograd
     when no weight gradient is taken); an explicit ``precision`` (see
-    `head_precision`) runs `_ConvTF32`; f32 compute runs `_ConvTrueF32`."""
+    `head_precision`) runs `_ConvTF32`; f32 compute runs `_ConvTrueF32`.
+    ``unpadded`` (a conv's axis of ``x``, 1 for H or D): that axis is not
+    padded, its context came with ``x`` (a spatial shard's halo,
+    parallel/halo.py)."""
     n = spatial_dims(x)
     if precision is not None:  # round operands, compute in compute_dtype
         x = x.to(precision)
@@ -238,7 +242,8 @@ def conv_general(x: torch.Tensor, w: torch.Tensor, *, stride: int,
     xn = x.permute(0, n + 1, *range(1, n + 1))  # (B, C, *S), channels-last
     k = w.shape[0]
     if kind == "conv":
-        pads = [_same_pads(xn.shape[2 + d], k, stride) for d in range(n)]
+        pads = [(0, 0) if d + 1 == unpadded
+                else _same_pads(xn.shape[2 + d], k, stride) for d in range(n)]
         if any(lo != hi for lo, hi in pads):
             # asymmetric: pad (last axis first, as F.pad takes it), then
             # cuDNN pads 0

@@ -1,25 +1,35 @@
-"""The data-parallel process group and its collectives (port of
-uresnet_tpu/parallel/mesh.py).
+"""The (data, spatial, model) mesh of a launch and its collectives (port
+of uresnet_tpu/parallel/mesh.py).
 
 The JAX package runs one process per host over a mesh of that host's
 devices, and XLA compiles the collectives. The port runs one process per
 device, in the ``torchrun`` model: ``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` come from the
 environment, the device is ``cuda:LOCAL_RANK`` with NCCL, and the CPU with
-gloo only when the caller asks for it. The data axis is the world: every
-process holds a replica of the train state and ``1/world`` of the global
-batch. The collectives are NCCL's (or gloo's) all-reduce and broadcast
-through ``torch.distributed``; nothing here is a hand-written transport.
+gloo only when the caller asks for it. The world is laid out as the JAX
+mesh's device grid, row-major over (data, spatial, model): the rank at
+mesh index (d, s, m) is ``(d * spatial + s) * model + m``.
 
-Without an initialised process group the mesh is one process and no
-collective runs: ``Mesh.group`` is None.
+  * data    — each data index reads its own share of the global batch;
+  * spatial — the ranks of a data index split H (2D) or D (3D) of its
+              batch, with halo exchanges at every conv (parallel/halo.py);
+  * model   — the ranks of a (data, spatial) index hold every conv's
+              output channels in slices (parallel/tp.py).
+
+The collectives are NCCL's (or gloo's) through ``torch.distributed``;
+nothing here is a hand-written transport. Every rank creates every
+process group, in one order (``dist.new_group`` requires it). A group that
+spans the world is the world's group (a launch of one process still runs
+its collectives); any other group of one rank is None: no collective runs
+in it. Without an initialised process group the mesh is one process and
+every group is None.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,26 +41,52 @@ MODEL_AXIS = "model"
 
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                 "MASTER_PORT")
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, modules to port: "
-               "parallel/tp.py and parallel/halo.py)")
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One rank's view of a group of the mesh: the group (None: this rank
+    alone), its size and this rank's position in it."""
+
+    group: Optional[dist.ProcessGroup]
+    size: int = 1
+    index: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This process's place in the (data, spatial, model) mesh. Only the
-    data axis is ported: ``data`` equals the world size, and ``group`` is
-    the process group its collectives run in (None: one process, no
-    collectives)."""
+    """This process's place in the (data, spatial, model) mesh.
+
+    ``group`` spans the world (None: one process). ``batch`` is the
+    data x spatial group of this rank's model index: the ranks that hold
+    different parts of the global batch and the same channels, over which
+    the BN statistics, the gradients, the loss and the confusion counts are
+    reduced (the world under data parallelism alone). ``data_axis``,
+    ``spatial_axis`` and ``model_axis`` are the groups along one axis
+    through this rank."""
 
     rank: int
     world: int
     data: int
+    spatial: int = 1
+    model: int = 1
+    index: Tuple[int, int, int] = (0, 0, 0)   # (d, s, m)
     group: Optional[dist.ProcessGroup] = None
+    batch: Axis = Axis(None)
+    data_axis: Axis = Axis(None)
+    spatial_axis: Axis = Axis(None)
+    model_axis: Axis = Axis(None)
 
     @property
     def leader(self) -> bool:
         """Rank 0 writes the logs, checkpoints and traces."""
         return self.rank == 0
+
+    @property
+    def batch_root(self) -> int:
+        """The global rank of mesh index (0, 0, m): the first rank of this
+        rank's batch group."""
+        return self.index[2]
 
 
 def process_index() -> int:
@@ -92,30 +128,108 @@ def init_distributed(device="cuda", backend: Optional[str] = None
     return dev
 
 
+def start_local(argv: List[str], world: int, *, env=None, cwd=None,
+                local_rank: Optional[Callable[[int], int]] = None) -> list:
+    """Start ``argv`` as the ``world`` processes of one launch on this
+    host, in the torchrun environment `init_distributed` reads (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK`` = ``local_rank(rank)``, default the rank,
+    ``MASTER_ADDR`` 127.0.0.1, a free ``MASTER_PORT``) on top of ``env``
+    (default: this process's); each one's output is piped. Returns the
+    ``subprocess.Popen`` of each rank, for `join_local`."""
+    import socket
+    import subprocess
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = dict(os.environ if env is None else env)
+    local_rank = local_rank or (lambda r: r)
+    return [subprocess.Popen(
+        argv, cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(base, RANK=str(r), WORLD_SIZE=str(world),
+                            LOCAL_RANK=str(local_rank(r)),
+                            MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)))
+        for r in range(world)]
+
+
+def join_local(procs: list, timeout: float = 600) -> List[Tuple[int, str]]:
+    """Wait for the processes of `start_local`, kill what is left at
+    ``timeout`` seconds (or on any error), and return each rank's (exit
+    code, output)."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def launch_local(argv: List[str], world: int, *, env=None, cwd=None,
+                 local_rank: Optional[Callable[[int], int]] = None,
+                 timeout: float = 600) -> List[Tuple[int, str]]:
+    """Run ``argv`` as the ``world`` processes of one launch on this host
+    (`start_local`) and wait for them (`join_local`): each rank's (exit
+    code, output)."""
+    return join_local(start_local(argv, world, env=env, cwd=cwd,
+                                  local_rank=local_rank), timeout)
+
+
 def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
 
 
 def make_mesh(n_data: int = 0, n_spatial: int = 1, n_model: int = 1) -> Mesh:
-    """The mesh over this launch's processes. ``n_data`` 0 means all of
-    them; any other ``n_data`` must equal the world size (one process per
-    device: a run never goes quietly on fewer). Spatial and model
-    parallelism raise NotImplementedError."""
-    for axis, n in ((SPATIAL_AXIS, n_spatial), (MODEL_AXIS, n_model)):
-        if n > 1:
-            raise NotImplementedError(
-                f"parallel.{axis} > 1: parallelism {_NOT_PORTED}")
+    """The (data, spatial, model) mesh over this launch's processes.
+    ``n_data`` 0 means world / (spatial * model). The product must equal
+    the world size (one process per device: a run never goes quietly on
+    fewer), else ValueError, as the JAX mesh raises."""
     world = process_count()
     if n_data is None or n_data <= 0:
-        n_data = world
-    if n_data != world:
+        n_data = world // (n_spatial * n_model)
+        if n_data < 1:
+            raise ValueError(
+                f"mesh needs at least {n_spatial * n_model} devices for "
+                f"spatial={n_spatial} x model={n_model}, have {world}")
+    need = n_data * n_spatial * n_model
+    if need != world:
         raise ValueError(
-            f"mesh {n_data}x{n_spatial}x{n_model} needs {n_data} devices, "
-            f"have {world} (one process per device: parallel.data must be "
-            f"the world size, or 0 for all)")
-    return Mesh(rank=process_index(), world=world, data=n_data,
-                group=dist.group.WORLD if dist.is_initialized() else None)
+            f"mesh {n_data}x{n_spatial}x{n_model} needs {need} devices, "
+            f"have {world} (one process per device: the mesh's product "
+            f"must be the world size; parallel.data 0 takes the rest)")
+    rank = process_index()
+    grid = np.arange(world).reshape(n_data, n_spatial, n_model)
+    index = tuple(int(i) for i in np.argwhere(grid == rank)[0])
+    d, s, m = index
+    axes = {}
+    # every rank walks every partition in this one order
+    for name, parts in (
+            ("batch", [grid[:, :, j].ravel() for j in range(n_model)]),
+            ("data", [grid[:, i, j] for i in range(n_spatial)
+                      for j in range(n_model)]),
+            ("spatial", [grid[i, :, j] for i in range(n_data)
+                         for j in range(n_model)]),
+            ("model", [grid[i, j, :] for i in range(n_data)
+                       for j in range(n_spatial)])):
+        for ranks in parts:
+            ranks = [int(r) for r in ranks]
+            if len(ranks) == world and dist.is_initialized():
+                group = dist.group.WORLD  # a launch of one still reduces
+            elif len(ranks) == 1:
+                group = None
+            else:
+                group = dist.new_group(ranks)
+            if rank in ranks:
+                axes[name] = Axis(group, len(ranks), ranks.index(rank))
+    return Mesh(rank=rank, world=world, data=n_data, spatial=n_spatial,
+                model=n_model, index=index,
+                group=dist.group.WORLD if dist.is_initialized() else None,
+                batch=axes["batch"], data_axis=axes["data"],
+                spatial_axis=axes["spatial"], model_axis=axes["model"])
 
 
 # -- collectives -----------------------------------------------------------------
