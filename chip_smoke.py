@@ -49,7 +49,9 @@ configs/train_3d_192.yaml, with random seeded weights:
                 the wall time, the device's busy time and idle share, the
                 peak memory and the top kernels; the full profiler tables go
                 to build/uresnet_tpu_torch/smoke/profile.txt;
-  7. train    — 30 steps of ``python -m uresnet_tpu_torch.cli.train`` on
+  7. train    — 30 steps of ``python -m uresnet_tpu_torch.cli.train`` in
+                the config's packed layout (phases 7, 9, 11, 12 and 14
+                print the layout they train in) on
                 synthetic 512^2 events (sparse transfer, densify on the
                 device, class-balance weights, Adam with the cosine
                 schedule) with one ``train.val_exact`` validation at the
@@ -141,10 +143,28 @@ configs/train_3d_192.yaml, with random seeded weights:
                 head) with its spatial axis of 2 (96 of 192 D planes a
                 rank), the same checks with 0 fused launches; the first
                 step's loss held (MESH_STEPS' comment); then the same leg in
-                true f32, its first loss within 1e-5 of one process.
+                true f32 in both layouts, packed as shipped and canonical
+                (``model.pack=false``: the canonical convs' halos, the
+                transposed conv's among them), each first loss within 1e-5
+                of one process.
                 With two or more cards phases 13-14 also run on NCCL, one
                 card a rank (data 2 on four cards); with one they print
                 that those legs did not run.
+ 15. packed   — the packed layout (models/packed.py; cuDNN convs and
+                torch's relayouts, 0 fused launches) against the canonical
+                one: the packed train forward at the flagship width, 512^2,
+                batch 4: f32 logits (TF32 off) within 1e-4 of the max,
+                float64 gradients within 1e-4 of each leaf's max, and a
+                planted backward fault in the stem's packing that this
+                check must flag; config 2's train_step_light at
+                batch 32 in three legs (packed as shipped, canonical, the
+                packed loss) and config 4's at batch 1, 192^3 (packed,
+                canonical), in turns: ms/step, rate, peak GiB, the bf16
+                first-step losses within 1e-2, the forward/backward split;
+                both configs' profiles per layout (top kernels, the weight
+                gradients, convertTensor and copies per step) and one
+                config-4 level-0 weight gradient in each layout. The SP
+                leg in packed f32 is phase 14's f32 leg.
 
 Then one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -156,7 +176,7 @@ build/uresnet_tpu_torch/smoke/ in the checkout.
 runs phases 1-3 alone (a short check of the kernels) and prints no result
 line; ``--parallel-only`` runs the build and phases 13-14 (with two or more
 cards their NCCL legs alone: the run for a four-card machine) and prints
-no result line. ``--dp-worker MODE SPEC`` is one rank of phase 11 (modes
+no result line; ``--packed-only`` the build and phase 15. ``--dp-worker MODE SPEC`` is one rank of phase 11 (modes
 nccl, gloo) or of phases 13-14 (tp, sp), started by them.
 """
 
@@ -186,8 +206,9 @@ TRAIN_EVENTS = 256
 TRAIN_STEPS = 30
 ANA_EVENTS = 128  # phase 8's timed passes
 
-# configs/train_2d_512.yaml, written out so no YAML parser is needed. The
-# port serves canonical: pack/pack_extra_h are accepted and ignored.
+# configs/train_2d_512.yaml, written out so no YAML parser is needed. It
+# trains packed as shipped (pack, pack_extra_h: models/packed.py); serving
+# and analysis run the BN-folded canonical forward, as in the JAX package.
 FLAGSHIP = {
     "model": {"dims": 2, "num_class": 3, "base_filters": 16, "depth": 5,
               "compute_dtype": "bfloat16", "pack": True, "pack_extra_h": True},
@@ -201,7 +222,7 @@ FLAGSHIP = {
 
 # configs/train_3d_192.yaml (BASELINE config 4), written out the same way:
 # 3D, base 16, depth 4, 2 blocks per level, bf16 with the f32 head, 192^3,
-# batch 1, remat off. Its pack: true runs canonical here too.
+# batch 1, remat off; its pack: true trains packed (96^3 x 128 at level 0).
 CONFIG4 = {
     "model": {"dims": 3, "num_class": 3, "base_filters": 16, "depth": 4,
               "compute_dtype": "bfloat16", "pack": True, "remat": False,
@@ -295,6 +316,23 @@ def randomize_bn(model, g):
                 p.copy_(torch.rand(c, generator=g) + 0.5)
             elif name.endswith(".bn.bias"):
                 p.copy_(torch.randn(c, generator=g) * 0.1)
+
+
+def layout_line(cfg, tag):
+    """Print the training layout a phase runs: ``pack``, ``pack_extra_h``,
+    ``train.packed_loss``, the phases per logit of the train loss, the
+    level-0 phases and the packed levels (models/packed.py)."""
+    from uresnet_tpu_torch.models.packed import (_hpack_level, _packed_level,
+                                                 loss_layout_phases)
+
+    m = cfg.model
+    levels = [lvl for lvl in range(m.depth) if m.pack and _packed_level(m, lvl)]
+    lvl0 = ((2 ** m.dims) * (2 if _hpack_level(m, 0) else 1)) if 0 in levels else 1
+    per_logit = loss_layout_phases(m) if cfg.train.packed_loss else 1
+    print(f"[{tag}]{' ' * (8 - len(tag))}layout: pack {m.pack}, pack_extra_h "
+          f"{m.pack_extra_h}, packed_loss {cfg.train.packed_loss}, phases per "
+          f"logit {per_logit}; level 0 in {lvl0} phases, packed levels "
+          f"{levels}", flush=True)
 
 
 def check_close(got, want, dtype):
@@ -668,11 +706,11 @@ def profile_forwards(fns, x, path, card, reps=3, warmup=3, unit="forward",
     that wall, peak memory, the ``top`` kernels that take the most device
     time, and every layout-conversion kernel (an NCHW/NHWC transpose that
     cuDNN or torch inserts). The full tables go to ``path`` (appended with
-    ``append``)."""
+    ``append``). Returns {name: {kernel: ms per call}}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    tables = [card]
+    tables, per_fn = [card], {}
     for name, fn in fns.items():
         for _ in range(warmup):
             fn(x)
@@ -698,6 +736,7 @@ def profile_forwards(fns, x, path, card, reps=3, warmup=3, unit="forward",
                 busy_us += b - max(a, end)
                 end = b
         busy_ms = busy_us / 1e3 / reps
+        per_fn[name] = {k: us / 1e3 / reps for k, us in per_kernel.items()}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"[profile] {name}: wall {wall_ms:.3f} ms/{unit}, device busy "
               f"{busy_ms:.3f} ms/{unit}, idle share {1 - busy_ms / wall_ms:.4f}, "
@@ -720,6 +759,7 @@ def profile_forwards(fns, x, path, card, reps=3, warmup=3, unit="forward",
     with open(path, "a" if append else "w") as f:
         f.write("\n".join(tables) + "\n")
     print(f"[profile] tables written to {path}", flush=True)
+    return per_fn
 
 
 def run_main(cli, argv, tag):
@@ -833,6 +873,7 @@ def train_phase(cfg_path, cfg, fused_mod, card, dev):
     from uresnet_tpu_torch.engine.trainer import Trainer
     from uresnet_tpu_torch.models.convert import flatten_tree, jax_train_state
 
+    layout_line(cfg, "train")
     S = cfg.data.image_size
     planes = tuple(cfg.data.planes)
     t0 = time.time()
@@ -939,7 +980,9 @@ def train_phase(cfg_path, cfg, fused_mod, card, dev):
 def layer_times(tr, ts, batch, card, reps=5, tag="train"):
     """The train step's layers timed apart with CUDA events (median of
     ``reps`` after one warm-up): densify, forward, loss, backward,
-    optimizer. The update is computed and dropped. Returns the medians."""
+    optimizer, in the trainer's layout (packed with ``model.pack``; the
+    packed loss's targets scattered packed). The update is computed and
+    dropped. Returns the medians."""
     from uresnet_tpu_torch.engine.losses import weighted_softmax_xent
     from uresnet_tpu_torch.engine.optim import adam_update
 
@@ -950,12 +993,18 @@ def layer_times(tr, ts, batch, card, reps=5, tag="train"):
     for _ in range(reps + 1):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
         ev[0].record()
-        dense = tr._prepare(batch)
+        ph = tr._loss_phases
+        dense = tr._prepare(batch, packed_targets=ph > 1)
         ev[1].record()
         with torch.enable_grad():
-            logits, _ = ts.model(dense["data"], train=True)
+            logits, _ = ts.model(dense["data"], train=True,
+                                 packed_logits=ph > 1)
+            if ph > 1:
+                logits = logits.reshape(logits.shape[:-1]
+                                        + (ph, tr.cfg.model.num_class))
             ev[2].record()
-            loss = weighted_softmax_xent(logits, dense["label"], dense["weight"])
+            label, weight, _ = tr._targets(dense, logits)
+            loss = weighted_softmax_xent(logits, label, weight)
             ev[3].record()
             grads = torch.autograd.grad(loss, [params[k] for k in trainable])
         ev[4].record()
@@ -1602,6 +1651,7 @@ def vol_phase(fused_mod, card, dev):
     cfg_path = os.path.join(WORK, "config4.json")
     with open(cfg_path, "w") as f:
         json.dump(CONFIG4, f)
+    layout_line(load_config(cfg_path), "3d")
     vol_card_vs_cpu(load_config(cfg_path), card, dev)
     ckpt, overrides = vol_train(cfg_path, fused_mod, card, dev)
     for B, remat in VOL_BATCHES:
@@ -2082,6 +2132,7 @@ def dp_phase(fused_mod, card, dev, t_step7):
     cfg_path = os.path.join(WORK, "dp.json")
     with open(cfg_path, "w") as f:
         json.dump(DP_CFG, f)
+    layout_line(load_config(cfg_path), "dp")
     train_file = os.path.join(WORK, "train.usef")  # phase 7's 256 events
     n_val = TRAIN_EVENTS
     base = [f"data.input_files={train_file}", "data.synthetic=false"]
@@ -2226,7 +2277,7 @@ def dp_phase(fused_mod, card, dev, t_step7):
 # -- phase 12: multi-plane, BASELINE config 3 -------------------------------------
 
 # configs/train_multiplane.yaml (BASELINE config 3): 30 rows = 10 events x
-# 3 planes, augment, 512^2, bf16; its pack flags run canonical
+# 3 planes, augment, 512^2, bf16; it trains packed as shipped
 CONFIG3 = {
     "model": dict(FLAGSHIP["model"]),
     "data": {"image_size": 512, "batch_size": 30, "planes": [0, 1, 2],
@@ -2274,13 +2325,14 @@ def step_stats(cfg_path, overrides, card, dev, tag):
 
 def mp_phase(fused_mod, card, dev):
     """Phase 12: BASELINE config 3 (see the module docstring)."""
-    from uresnet_tpu_torch import generate_file
+    from uresnet_tpu_torch import generate_file, load_config
     from uresnet_tpu_torch.cli import infer, train
 
     t0 = time.time()
     cfg_path = os.path.join(WORK, "config3.json")
     with open(cfg_path, "w") as f:
         json.dump(CONFIG3, f)
+    layout_line(load_config(cfg_path), "mp")
     S, planes = 512, (0, 1, 2)
     mp_file = generate_file(os.path.join(WORK, "mp.usef"), MP_EVENTS,
                             seed=SEED + 31, shape=(S, S), planes=planes)
@@ -2370,7 +2422,7 @@ TP_CFG = {
 }
 # configs/train_3d_192_sp.yaml at one data group's shape (its global batch
 # of 8 over data 4: 2 volumes) with its spatial axis of 2; its pack: true
-# runs canonical, as config 4's does
+# trains packed, the halos exchanged in packed rows (parallel/halo.py)
 SP_CFG = {
     "model": {"dims": 3, "num_class": 3, "base_filters": 16, "depth": 4,
               "compute_dtype": "bfloat16", "pack": True, "remat": "block",
@@ -2393,6 +2445,7 @@ SP_EVENTS = 16     # phase 14's training file, also its val_exact set
 SP_F32_RTOL = 1e-5
 SP_F32_STEPS = 2
 PARALLEL_ONLY = False  # phases 1-2 and 13-14 alone (--parallel-only)
+PACKED_ONLY = False    # phases 1-2 and 15 alone (--packed-only)
 
 
 def state_digest(ts) -> str:
@@ -2414,8 +2467,9 @@ def state_bytes(ts) -> int:
 def mesh_worker(mode, spec_path):
     """One rank of a phase 13 ('tp') or 14 ('sp') leg (``--dp-worker``):
     on the spec's mesh, train_step_light timed, its peak memory, its
-    collectives per step (profiler), the gathered state saved by rank 0
-    and its digest; then cli.train --distributed, counted."""
+    collectives per step (profiler) unless the spec says ``timed: false``,
+    the gathered state saved by rank 0 and its digest; then cli.train
+    --distributed, counted."""
     import torch.distributed as dist
 
     from uresnet_tpu_torch import load_config
@@ -2440,13 +2494,14 @@ def mesh_worker(mode, spec_path):
         state[0], metrics = tr.train_step_light(state[0], batch)
         return metrics
 
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    out["ms"] = time_ms(step, reps=2, warmup=1)
-    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    out["ops"], out["kernels"], out["kernel_ms"] = collective_counts(
-        step, reps=1, warmup=0)
+    if spec["timed"]:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out["ms"] = time_ms(step, reps=2, warmup=1)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["ops"], out["kernels"], out["kernel_ms"] = collective_counts(
+            step, reps=1, warmup=0)
     ts = state[0]
     out["state_bytes"] = state_bytes(ts)
     out["stem_w"] = list(ts.model.stem.conv.w.shape)
@@ -2512,14 +2567,15 @@ def mesh_losses(got, want, what, rtol, held):
 
 
 def mesh_leg(mode, cfg_path, base, shape, backend, world, n_val, dims,
-             fused_mod, dev, tag, steps=None, rtol=DP_LOSS_RTOL):
+             fused_mod, dev, tag, steps=None, rtol=DP_LOSS_RTOL, timed=True):
     """One leg of phase 13 or 14: ``world`` ranks of ``mesh_worker`` on the
     mesh ``shape`` = (data, spatial, model) (gloo: all on cuda:0; nccl:
     one card each) against `mesh_reference`. Checks the losses (2D: every
     step, 3D: the first), the exactly-once validation (0 or 44 fused
     launches per local batch of its rows), the gathered checkpoint
     restored in one process (digest equal); returns the ranks' results and
-    the reference's."""
+    the reference's. ``timed=False``: the ranks skip their timed and
+    profiled steps (an exactness leg)."""
     nd, ns, nm = shape
     steps = steps or MESH_STEPS
     name = tag.replace(" ", "_")
@@ -2532,7 +2588,7 @@ def mesh_leg(mode, cfg_path, base, shape, backend, world, n_val, dims,
     spec = os.path.join(WORK, f"{name}_spec.json")
     with open(spec, "w") as f:
         json.dump({"cfg": cfg_path, "overrides": over, "backend": backend,
-                   "out": os.path.join(WORK, name),
+                   "out": os.path.join(WORK, name), "timed": timed,
                    "cli": ["train.summary_iter=1", "train.checkpoint_iter=0",
                            f"train.val_iter={steps}",
                            "train.val_exact=true",
@@ -2572,21 +2628,29 @@ def held(rel, dims, rtol=DP_LOSS_RTOL):
 
 def sp_f32_leg(cfg_path, base, fused_mod, dev, card):
     """Phase 14's exactness check: the same leg at compute_dtype float32
-    (true f32, f32 head), SP_F32_STEPS steps; its first loss within
-    SP_F32_RTOL of one process."""
+    (true f32, f32 head), SP_F32_STEPS steps, in both layouts: packed as
+    shipped (the halos in packed rows) and canonical (``model.pack=false``:
+    the canonical convs' halos, the transposed conv's among them); each
+    first loss within SP_F32_RTOL of one process. Untimed: the ranks take
+    no steps but the CLI's."""
+    from uresnet_tpu_torch import load_config
+
     cfg = json.loads(json.dumps(SP_CFG))
     cfg["model"].update(compute_dtype="float32", head_dtype=None)
     path = os.path.join(WORK, "sp_f32.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
-    res, rel, _, ref_peak, _, _ = mesh_leg(
-        "sp", path, base, (1, 2, 1), "gloo", 2, SP_EVENTS, 3, fused_mod, dev,
-        "sp f32", steps=SP_F32_STEPS, rtol=SP_F32_RTOL)
-    print(f"[sp]      the same in true f32 (exactness): losses against one "
-          f"process {held(rel, 3, SP_F32_RTOL)}; peak per rank "
-          f"{[round(r['peak_gib'], 3) for r in res]} GiB against "
-          f"{ref_peak:.3f}; {[round(r['ms'], 2) for r in res]} ms/step | "
-          f"{card}", flush=True)
+    for layout, over in (("packed as shipped", []),
+                         ("canonical", ["model.pack=false"])):
+        layout_line(load_config(path, over), "sp")
+        t0 = time.time()
+        _, rel, _, _, _, _ = mesh_leg(
+            "sp", path, base + over, (1, 2, 1), "gloo", 2, SP_EVENTS, 3,
+            fused_mod, dev, f"sp f32 {layout.split()[0]}",
+            steps=SP_F32_STEPS, rtol=SP_F32_RTOL, timed=False)
+        print(f"[sp]      the same in true f32, {layout} (exactness): losses "
+              f"against one process {held(rel, 3, SP_F32_RTOL)}; leg wall "
+              f"{time.time() - t0:.1f} s | {card}", flush=True)
 
 
 def gloo_leg(mode, cfg, cfg_path, base, shape, form, n_events, dims,
@@ -2639,7 +2703,7 @@ def nccl_leg(mode, cfg_path, base, shape, n_events, dims, fused_mod, dev,
 
 def parallel_phase(fused_mod, card, dev):
     """Phases 13 (tp) and 14 (sp): see the module docstring."""
-    from uresnet_tpu_torch import generate_file
+    from uresnet_tpu_torch import generate_file, load_config
 
     n_cards = torch.cuda.device_count()
     for mode, cfg, events, n_events, dims, shape, form in (
@@ -2652,6 +2716,7 @@ def parallel_phase(fused_mod, card, dev):
         cfg_path = os.path.join(WORK, f"{mode}.json")
         with open(cfg_path, "w") as f:
             json.dump(cfg, f)
+        layout_line(load_config(cfg_path), mode)
         S = cfg["data"]["image_size"]
         path = os.path.join(WORK, events)
         if not os.path.exists(path):  # phase 7 wrote the 2D one
@@ -2676,6 +2741,319 @@ def parallel_phase(fused_mod, card, dev):
                      dev, card, n_cards)
         print(f"[{mode}]      phase {13 if mode == 'tp' else 14} wall "
               f"{time.time() - t0:.1f} s | {card}", flush=True)
+
+
+# -- phase 15: the packed layout against the canonical one ------------------------
+
+PACKED_CHECK_B = 4      # the card correctness check: flagship width, 512^2
+PACKED_REL = 1e-4       # packed vs canonical: f32 logits of the max, f64 gradients of each leaf's
+PACKED_LOSS_RTOL = 1e-2  # bf16 first-step loss, packed vs canonical
+# config 2's legs: the shipped layout, canonical, and the packed loss
+PACKED_LEGS_2D = (("packed", []), ("canonical", ["model.pack=false"]),
+                  ("packed loss", ["train.packed_loss=true"]))
+PACKED_LEGS_3D = (("packed", []), ("canonical", ["model.pack=false"]))
+# profiler kernel-name fragments of the costs the packed layout moves: the
+# f32 weight-gradient convs, cuDNN's tensor conversions, and the copies
+# (the relayouts, the casts and the skip concats)
+PACKED_KERNEL_GROUPS = (("wgrad", ("wgrad",)), ("convertTensor", ("converttensor",)),
+                        ("copies", ("copy", "catarray")))
+
+
+def packed_check(cfg_path, card, dev):
+    """Phase 15a: at the flagship's width and depth, 512^2, batch 4, the
+    packed train forward against the canonical one on the same weights:
+    in f32 (true f32 convs, the packing's matmuls with TF32 off) the train
+    and eval logits within PACKED_REL of the max; in float64 each
+    parameter's gradient of the weighted xent within PACKED_REL of its
+    leaf's max.
+
+    The gradients are held in float64 because in f32 they are not
+    continuous in the rounding at this depth and size: a ReLU whose input
+    lies within f32 noise of 0 flips between two summation orders, and its
+    gradient with it, so two f32 runs of the same net differ by up to ~1e-1
+    in some leaves (PERF.md). A control then plants a backward
+    fault confined to one small leaf (`stem_grad_fault`) and requires the
+    same check to flag that leaf; it prints what the fault reads there and
+    over all leaves together."""
+    from uresnet_tpu_torch import load_config
+    from uresnet_tpu_torch.engine.losses import weighted_softmax_xent
+    from uresnet_tpu_torch.models.uresnet import UResNet
+
+    cfg = load_config(cfg_path, ["model.compute_dtype=float32"])
+    S, B = cfg.data.image_size, PACKED_CHECK_B
+    gx = torch.Generator().manual_seed(SEED + 51)
+    x = torch.rand(B, S, S, 1, generator=gx)
+    x = (x * (x > 0.9)).to(dev)
+    label = torch.randint(0, 3, (B, S, S), generator=gx).to(dev)
+    weight = (torch.rand(B, S, S, generator=gx) + 0.5).to(dev)
+    g = torch.Generator().manual_seed(SEED + 50)
+    ref = UResNet(cfg.model, generator=g)
+    randomize_bn(ref, g)
+
+    def model(pack, dtype):
+        m = UResNet(dataclasses.replace(cfg.model, pack=pack,
+                                        compute_dtype=dtype),
+                    generator=torch.Generator().manual_seed(SEED + 50))
+        m.load_state_dict(ref.state_dict())
+        m.to(dev)
+        return m.double() if dtype == torch.float64 else m
+
+    logits = {}
+    with torch.no_grad():
+        for pack in (True, False):
+            m = model(pack, "float32")
+            logits[pack] = (m(x, train=True)[0], m(x, train=False)[0])
+            del m
+    d_logits = rel_err(logits[True][0], logits[False][0])
+    d_eval = rel_err(logits[True][1], logits[False][1])
+    del logits
+
+    def grads(pack, fault=False):
+        m = model(pack, torch.float64)
+        with stem_grad_fault(m) if fault else contextlib.nullcontext():
+            lg, _ = m(x.double(), train=True)
+        loss = weighted_softmax_xent(lg, label, weight)
+        params = dict(m.named_parameters())
+        return dict(zip(params, torch.autograd.grad(loss,
+                                                    list(params.values()))))
+
+    gc = grads(False)
+    leaf = {k: rel_err(v, gc[k]) for k, v in grads(True).items()}
+    worst = max(leaf, key=leaf.get)
+    if max(d_logits, d_eval, leaf[worst]) > PACKED_REL:
+        raise AssertionError(
+            f"packed vs canonical: f32 logits {d_logits:.3e}, eval "
+            f"{d_eval:.3e}; f64 gradient of {worst} {leaf[worst]:.3e} of its "
+            f"max (limit {PACKED_REL})")
+    gf = grads(True, fault=True)
+    bad = {k: rel_err(v, gc[k]) for k, v in gf.items()}
+    flagged = sorted(k for k, v in bad.items() if v > PACKED_REL)
+    if flagged != ["stem.conv.w"]:
+        raise AssertionError(f"the planted stem fault flags {flagged} "
+                             f"(readings {bad['stem.conv.w']:.3e} there)")
+    l2 = (sum(((gf[k] - gc[k]) ** 2).sum() for k in gc)
+          / sum((gc[k] ** 2).sum() for k in gc)).sqrt().item()
+    print(f"[packed]  the flagship width and depth, {S}^2, batch {B}: "
+          f"packed vs canonical f32 logits (TF32 off) train {d_logits:.3e}, "
+          f"eval {d_eval:.3e} of the max; float64 gradients of the "
+          f"{len(leaf)} leaves, worst {worst} {leaf[worst]:.3e} of its max "
+          f"(limit {PACKED_REL} each); control, a backward fault in the "
+          f"stem's packing alone: flags {flagged} at "
+          f"{bad['stem.conv.w']:.3e}, the other leaves at most "
+          f"{max(v for k, v in bad.items() if k != 'stem.conv.w'):.3e}, all "
+          f"leaves together {l2:.3e} relative L2 | {card}", flush=True)
+    del ref, gc, gf
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def stem_grad_fault(model):
+    """The packed forward of ``model`` with a planted backward fault: the
+    stem's packed kernel keeps its value but takes its gradient through
+    the kernel with input and output phases transposed (the 0/1 table's
+    p' and p swapped), so only ``stem.conv.w``'s gradient is wrong."""
+    from uresnet_tpu_torch.models import packed
+
+    pack_same_w = packed._pack_same_w
+
+    def faulty(w, dims, *args):
+        wp = pack_same_w(w, dims, *args)
+        if w is not model.stem.conv.w:
+            return wp
+        k, ci, co = wp.shape[:dims], w.shape[-2], w.shape[-1]
+        P = wp.shape[-1] // co
+        wt = wp.reshape(k + (P, ci, P, co)).transpose(dims, dims + 2)
+        wt = wt.reshape(wp.shape)
+        return wt + (wp - wt).detach()
+
+    packed._pack_same_w = faulty
+    try:
+        yield
+    finally:
+        packed._pack_same_w = pack_same_w
+
+
+def packed_legs(cfg_path, overrides, legs, card, dev, tag, unit, reps):
+    """train_step_light of each leg (its overrides) from one seeded initial
+    state on one sparse batch, timed in turns (legs, then reversed) with
+    CUDA events, median of ``reps`` per turn; per leg the first step's
+    loss, ms/step, rate, peak GiB and the layers. Returns {leg: stats}."""
+    from uresnet_tpu_torch import load_config
+    from uresnet_tpu_torch.engine.trainer import Trainer
+
+    trs, states, batch, res = {}, {}, None, {}
+    for name, extra in legs:
+        tr = Trainer(load_config(cfg_path, overrides + extra), device=dev)
+        layout_line(tr.cfg, tag)
+        trs[name] = tr
+        states[name] = [tr.init_state()]
+        if batch is None:
+            batch = first_batch(tr)
+        states[name][0], m = tr.train_step_light(states[name][0], batch)
+        res[name] = {"loss0": float(m["loss"]), "ms": [], "peak": 0.0}
+    for name, _ in legs + legs[::-1]:
+        tr, st = trs[name], states[name]
+
+        def step(_=None, tr=tr, st=st):
+            st[0], m = tr.train_step_light(st[0], batch)
+            return m
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res[name]["ms"].append(time_ms(step, reps=reps, warmup=2))
+        res[name]["peak"] = max(res[name]["peak"],
+                                torch.cuda.max_memory_allocated() / 2 ** 30)
+    B = next(iter(trs.values())).cfg.data.batch_size
+    for name, _ in legs:
+        r = res[name]
+        if not np.isfinite(r["loss0"]):
+            raise AssertionError(f"{tag} {name}: first loss {r['loss0']}")
+        r["layers"] = layer_times(trs[name], states[name][0], batch, card,
+                                  reps=3, tag=tag)
+        print(f"[{tag}]{' ' * (8 - len(tag))}{name}: {r['ms']} ms/step in turns "
+              f"= {[round(B / t * 1e3, 3) for t in r['ms']]} {unit}/s, peak "
+              f"{r['peak']:.3f} GiB, first-step loss {r['loss0']:.6f}; forward "
+              f"{r['layers']['forward']:.2f} ms, backward "
+              f"{r['layers']['backward']:.2f} ms | {card}", flush=True)
+    ref = res[legs[0][0]]["loss0"]
+    for name, _ in legs[1:]:
+        rel = abs(res[name]["loss0"] - ref) / abs(ref)
+        if rel > PACKED_LOSS_RTOL:
+            raise AssertionError(f"{tag} {name}: first-step loss "
+                                 f"{res[name]['loss0']} vs {ref} (rtol "
+                                 f"{PACKED_LOSS_RTOL})")
+        res[name]["loss_rel"] = rel
+    return res, trs, states, batch
+
+
+def packed_profile(trs, states, batch, card, tag, legs):
+    """3 steps of each leg in ``legs`` under torch.profiler: the top
+    kernels, and the f32 weight gradients, convertTensor and copies
+    summed."""
+    groups = {}
+    for name in legs:
+        tr = trs[name]
+        st = states[name]
+
+        def step(_=None, tr=tr, st=st):
+            st[0], m = tr.train_step_light(st[0], batch)
+            return m
+
+        per = profile_forwards({f"{tag} {name} train step": step}, None,
+                               os.path.join(WORK, "profile.txt"), card,
+                               unit="step", append=True, top=12)
+        per = next(iter(per.values()), {})
+        groups[name] = {g: sum(ms for k, ms in per.items()
+                               if any(f in k.lower() for f in frags))
+                        for g, frags in PACKED_KERNEL_GROUPS}
+        print(f"[packed]  {tag} {name}: per step "
+              + ", ".join(f"{g} {ms:.3f} ms" for g, ms in groups[name].items())
+              + f" | {card}", flush=True)
+    return groups
+
+
+def level0_wgrad(card, dev):
+    """The level-0 f32 weight gradient of one 16 -> 16 3x3x3 conv of config
+    4 at 192^3, batch 1, as the train step takes it (ops/conv.py
+    _ConvF32WGrad: bf16 x and g upcast, TF32 conv), canonical (192^3 x 16)
+    against packed (96^3 x 128, the packed kernel's gradient then through
+    the packing): ms per conv, median of 5."""
+    from uresnet_tpu_torch.ops.conv import conv_general
+    from uresnet_tpu_torch.ops.pack import pack_weight_conv, space_to_depth
+
+    S, C = CONFIG4["data"]["image_size"], CONFIG4["model"]["base_filters"]
+    gx = torch.Generator(device=dev).manual_seed(SEED + 52)
+    x = torch.randn(1, S, S, S, C, generator=gx, device=dev).bfloat16()
+    w = (torch.randn(3, 3, 3, C, C, generator=gx, device=dev) * 0.05
+         ).requires_grad_()
+    out = {}
+    for name, xin, fn in (("canonical", x, lambda: w),
+                          ("packed", space_to_depth(x, dims=3),
+                           lambda: pack_weight_conv(w, 3))):
+        y = conv_general(xin, fn(), stride=1, compute_dtype=torch.bfloat16)
+        g = torch.randn(y.shape, generator=gx, device=dev).bfloat16()
+        out[name] = time_ms(lambda: torch.autograd.grad(y, [w], g,
+                                                        retain_graph=True))
+        del y, g
+    print(f"[packed]  3d level-0 f32 weight gradient of one {C}->{C} conv at "
+          f"{S}^3 (cast + TF32 conv, as the step takes it): canonical "
+          f"{out['canonical']:.3f} ms, packed ({S // 2}^3 x {8 * C}, 8x the "
+          f"MACs) {out['packed']:.3f} ms | {card}", flush=True)
+    del x, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def packed_phase(fused_mod, card, dev):
+    """Phase 15 (packed): the packed layout on the card (models/packed.py;
+    no hand kernel: cuDNN's convs, torch's relayout copies and the packing
+    matmuls, 0 fused launches) — a. the f32 and f64 check at the flagship
+    width; b. config 2's train_step_light at batch 32, 512^2 in three legs
+    (shipped packed, canonical, packed loss) in turns, the bf16 first-step
+    losses within PACKED_LOSS_RTOL; c. config 4's at batch 1, 192^3,
+    packed against canonical; for both configs the profiler's top kernels,
+    the weight gradients, convertTensor and copies of each layout; one
+    level-0 weight gradient of config 4 in each layout. The SP leg in
+    packed f32 is phase 14's f32 leg."""
+    from uresnet_tpu_torch import generate_file
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    cfg_path = os.path.join(WORK, "flagship.json")
+    with open(cfg_path, "w") as f:
+        json.dump(FLAGSHIP, f)
+    packed_check(cfg_path, card, dev)
+    S = FLAGSHIP["data"]["image_size"]
+    train_file = os.path.join(WORK, "train.usef")  # phase 7's
+    if not os.path.exists(train_file):
+        generate_file(train_file, FLAGSHIP["data"]["batch_size"], seed=SEED + 1,
+                      shape=(S, S), planes=tuple(FLAGSHIP["data"]["planes"]))
+    (r2, trs, states, batch), counts, _ = counted(fused_mod, lambda: packed_legs(
+        cfg_path, [f"data.input_files={train_file}", "data.synthetic=false"],
+        PACKED_LEGS_2D, card, dev, "packed", "img", 5))
+    expect_launches(counts, 1, per_batch=0)
+    groups2 = packed_profile(trs, states, batch, card, "2d",
+                             ("packed", "canonical"))
+    del trs, states, batch
+    torch.cuda.empty_cache()
+    v_path = os.path.join(WORK, "config4.json")
+    with open(v_path, "w") as f:
+        json.dump(CONFIG4, f)
+    v_file = os.path.join(WORK, "vol_train.usef")  # phase 9's
+    if not os.path.exists(v_file):
+        generate_file(v_file, 2, seed=SEED + 11, shape=(192,) * 3, planes=(0,))
+    (r4, trs, states, batch), counts, _ = counted(fused_mod, lambda: packed_legs(
+        v_path, [f"data.input_files={v_file}", "data.synthetic=false"],
+        PACKED_LEGS_3D, card, dev, "packed", "vol", 5))
+    expect_launches(counts, 1, per_batch=0)
+    groups = packed_profile(trs, states, batch, card, "3d",
+                            [name for name, _ in PACKED_LEGS_3D])
+    del trs, states, batch
+    torch.cuda.empty_cache()
+    w0 = level0_wgrad(card, dev)
+    summary = {
+        "config2": {k: {"ms": v["ms"], "peak_gib": round(v["peak"], 3),
+                        "loss0": v["loss0"], "forward_ms": v["layers"]["forward"],
+                        "backward_ms": v["layers"]["backward"],
+                        **groups2.get(k, {})}
+                    for k, v in r2.items()},
+        "config4": {k: {"ms": v["ms"], "peak_gib": round(v["peak"], 3),
+                        "loss0": v["loss0"], "forward_ms": v["layers"]["forward"],
+                        "backward_ms": v["layers"]["backward"], **groups[k]}
+                    for k, v in r4.items()},
+        "level0_wgrad_ms": w0}
+    with open(os.path.join(WORK, "packed.json"), "w") as f:
+        json.dump(summary, f)
+    ratio2 = np.median(r2["packed"]["ms"]) / np.median(r2["canonical"]["ms"])
+    ratio4 = np.median(r4["packed"]["ms"]) / np.median(r4["canonical"]["ms"])
+    print(f"[packed]  packed / canonical ms per step: config 2 {ratio2:.4f}, "
+          f"config 4 {ratio4:.4f}; first-step bf16 losses against the packed "
+          f"leg: {', '.join(f'{k} {v['loss_rel']:.2e}' for k, v in {**r2, **r4}.items() if 'loss_rel' in v)}"
+          f" (limit {PACKED_LOSS_RTOL}); fused launches over every leg "
+          f"{counts} (0: the JAX packed path calls no Pallas kernel either); "
+          f"phase 15 wall "
+          f"{time.time() - t0:.1f} s | {card}", flush=True)
 
 
 def main():
@@ -2715,6 +3093,9 @@ def main():
     os.makedirs(WORK)
     if PARALLEL_ONLY:
         parallel_phase(fused_mod, card, dev)
+        return
+    if PACKED_ONLY:
+        packed_phase(fused_mod, card, dev)
         return
     cfg_path = os.path.join(WORK, "flagship.json")
     with open(cfg_path, "w") as f:
@@ -2843,6 +3224,9 @@ def main():
     # 13-14. tensor parallelism and the spatial halo exchange
     parallel_phase(fused_mod, card, dev)
 
+    # 15. the packed layout against the canonical one
+    packed_phase(fused_mod, card, dev)
+
     leaked = sorted(m for m in sys.modules if m in ("jax", "uresnet_tpu")
                     or m.startswith(("jax.", "jaxlib", "uresnet_tpu.")))
     if leaked:
@@ -2877,7 +3261,9 @@ if __name__ == "__main__":
         raise SystemExit(worker(*sys.argv[2:4]))
     KERNELS_ONLY = sys.argv[1:] == ["--kernels-only"]
     PARALLEL_ONLY = sys.argv[1:] == ["--parallel-only"]
-    if sys.argv[1:] not in ([], ["--kernels-only"], ["--parallel-only"]):
+    PACKED_ONLY = sys.argv[1:] == ["--packed-only"]
+    if sys.argv[1:] not in ([], ["--kernels-only"], ["--parallel-only"],
+                            ["--packed-only"]):
         raise SystemExit(f"usage: {sys.argv[0]} [--kernels-only | "
-                         f"--parallel-only]")
+                         f"--parallel-only | --packed-only]")
     main()

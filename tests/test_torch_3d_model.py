@@ -227,8 +227,9 @@ def test_conversion_carries_5d_kernels(pair):
 
 @pytest.mark.parametrize("pack", [False, True], ids=["canonical", "packed"])
 def test_eval_forward_matches_jax(pair, pack):
-    """The port's (canonical) eval forward vs ``uresnet_apply`` with
-    ``pack=False`` and with ``pack=True``, the config as shipped."""
+    """The port's eval forward vs ``uresnet_apply`` with ``pack=False``
+    and with ``pack=True``, the config as shipped: canonical against
+    canonical, the port's packed forward against the JAX packed one."""
     params, state, x = pair
     cfg = dataclasses.replace(CFG, pack=pack)
     want, _ = uresnet_apply(params, state, x, cfg=cfg, train=False)

@@ -39,6 +39,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-4
 BN_SHAPE = (16, 8, 8, 6)  # the global batch of the BN check, 8 rows a rank
+PHASES = 2  # its packed form: 2 phases of 3 channels
 SIGTERM_ITERS = 100000
 
 
@@ -56,9 +57,13 @@ def _variant(outdir, name, extra=()):
 
 # 'weight_sum' with nonzero-boost weights: under class-balance weights
 # every row's weights sum to its pixel count, where 'weight_sum' is 'mean'
+# 'packed': the flagship's packed layout (resident H pack) with the packed
+# loss, its targets scattered into the packed layout, and augment
 VARIANTS = {"plain": (), "aug": ("data.augment=true",),
             "ws": ("train.loss_normalize=weight_sum",
-                   "data.weight_mode=nonzero")}
+                   "data.weight_mode=nonzero"),
+            "packed": ("model.pack=true", "model.pack_extra_h=true",
+                       "train.packed_loss=true", "data.augment=true")}
 N_EVENTS, SIZE = 16, 64
 PARITY_SIZE, PARITY_STEPS = 16, 1
 
@@ -110,14 +115,19 @@ def _bn_inputs():
     return x, r, params, state
 
 
-def _bn_run(x, r, params, state, group=None):
-    """y, new state and the gradients of sum(y * r) w.r.t. x, scale, bias."""
+def _bn_run(x, r, params, state, group=None, phases=1):
+    """y, new state and the gradients of sum(y * r) w.r.t. x, scale, bias;
+    ``phases``: x packed, (..., phases * C) for the (C,) params."""
     from uresnet_tpu_torch.ops.norm import batch_norm_train
 
+    C = x.shape[-1] // phases
+    params = {k: v[:C] for k, v in params.items()}
+    state = {k: v[:C] for k, v in state.items()}
     xt = torch.tensor(x, requires_grad=True)
     pt = {k: torch.tensor(v, requires_grad=True) for k, v in params.items()}
     y, new = batch_norm_train(xt, pt, {k: torch.tensor(v) for k, v in
-                                       state.items()}, group=group)
+                                       state.items()}, group=group,
+                              phases=phases)
     gx, gs, gb = torch.autograd.grad((y * torch.tensor(r)).sum(),
                                      [xt, pt["scale"], pt["bias"]])
     return {"y": y.detach().numpy(), "mean": new["mean"].numpy(),
@@ -166,9 +176,10 @@ def _worker(mode, cfg_path, parity_path, outdir):
             out["batch_error"] = str(e)
         x, r, params, state = _bn_inputs()
         half = slice(rank * BN_SHAPE[0] // 2, (rank + 1) * BN_SHAPE[0] // 2)
-        np.savez(os.path.join(outdir, f"bn{rank}.npz"),
-                 **_bn_run(x[half], r[half], params, state,
-                           group=dist.group.WORLD))
+        for name, phases in (("bn", 1), ("bnp", PHASES)):
+            np.savez(os.path.join(outdir, f"{name}{rank}.npz"),
+                     **_bn_run(x[half], r[half], params, state,
+                               group=dist.group.WORLD, phases=phases))
         # last: the CLI joins the live group and shuts it down at its end
         cli_cfg = _variant(outdir, "cli", ("train.iterations=2",
                                             "train.checkpoint_iter=0"))
@@ -420,11 +431,35 @@ def test_two_process_batch_norm_train(dist_run):
     process on the concatenated batch: each rank's y and dx are its rows,
     the running stats are equal on both ranks and to one process's, and
     the scale and bias gradients sum to one process's."""
+    _check_bn(dist_run, "bn", 1)
+
+
+def test_two_process_packed_batch_norm_train(dist_run):
+    """The same on a packed tensor (2 phases of 3 channels): the phases
+    are summed into the per-channel sums before the one all-reduce, so the
+    two ranks equal one process, and one process equals BN of the unpacked
+    tensor."""
+    _check_bn(dist_run, "bnp", PHASES)
     x, r, params, state = _bn_inputs()
-    want = _bn_run(x, r, params, state)
+    C = x.shape[-1] // PHASES
+    unpacked = lambda a: a.reshape(a.shape[:-1] + (PHASES, C)).transpose(  # noqa: E731
+        0, 1, 3, 2, 4).reshape(a.shape[0], a.shape[1], a.shape[2] * PHASES, C)
+    want = _bn_run(unpacked(x), unpacked(r), params, state)
+    got = _bn_run(x, r, params, state, phases=PHASES)
+    for k in ("y", "dx"):
+        np.testing.assert_allclose(unpacked(got[k]), want[k], rtol=1e-5,
+                                   atol=1e-5, err_msg=k)
+    for k in ("mean", "var", "dscale", "dbias"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+
+
+def _check_bn(dist_run, name, phases):
+    x, r, params, state = _bn_inputs()
+    want = _bn_run(x, r, params, state, phases=phases)
     got = []
     for rank in (0, 1):
-        with np.load(os.path.join(dist_run["outdir"], f"bn{rank}.npz")) as z:
+        with np.load(os.path.join(dist_run["outdir"], f"{name}{rank}.npz")) as z:
             got.append({k: z[k] for k in z.files})
     for k in ("y", "dx"):
         np.testing.assert_allclose(np.concatenate([got[0][k], got[1][k]]),
@@ -436,6 +471,21 @@ def test_two_process_batch_norm_train(dist_run):
     for k in ("dscale", "dbias"):
         np.testing.assert_allclose(got[0][k] + got[1][k], want[k], rtol=1e-5,
                                    atol=1e-5, err_msg=k)
+
+
+def test_two_process_packed_step_matches_one_process(dist_run):
+    """A DP step of the packed layout with the packed loss (targets
+    scattered into the packed layout, augment on): replicas bit-equal, and
+    the state equals one process's on the rank-major batch."""
+    s0 = _rank_state(dist_run, "packed", 0)
+    s1 = _rank_state(dist_run, "packed", 1)
+    for k in s0:
+        np.testing.assert_array_equal(s0[k], s1[k], err_msg=k)
+    tr, ts, last = _one_process(dist_run, "packed")
+    assert tr._loss_phases == 8
+    _assert_states_close(s0, _state_leaves(ts), "packed DP vs one process")
+    got = dist_run["results"][0]["packed"]["last"]["loss"]
+    assert np.isclose(got, last["loss"], rtol=1e-5), (got, last["loss"])
 
 
 def test_two_process_batch_divisibility_error(dist_run):

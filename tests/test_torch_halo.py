@@ -36,6 +36,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 4
 REL = 1e-5  # of the max, f32
 N_CLI = 8    # the events of the cli.train run
+# the packed layout at (data 2, spatial 2): in 2D with the resident H pack
+# (its level-0 convs exchange packed, H-packed rows) and the packed loss; in
+# 3D as configs/train_3d_192_sp.yaml ships it
+PACKED = {2: dict(pack=True, pack_extra_h=True), 3: dict(pack=True)}
 
 # name: (x shape, w shape, stride, kind, (data, spatial))
 CONVS = {
@@ -69,24 +73,26 @@ def _shard(a, mesh_shape, d, s):
     return a[d * b:(d + 1) * b, s * h:(s + 1) * h]
 
 
-def _cfg(dims, outdir, name, spatial=1):
+def _cfg(dims, outdir, name, spatial=1, packed=False):
     """tests/test_trainer.py's tiny config (2D) and tests/test_tp.py's 3D
     one (base 4, 16^3, batch 2), f32, on a (data 2, spatial) mesh. (At the
     dryrun's 3D base 2 the 2-channel BN statistics are ill-conditioned:
     XLA's CPU f32 stem gradient lies 2.7e-3 off a float64 port step, the
-    port's f32 2.5e-4.)"""
+    port's f32 2.5e-4.) ``packed``: the layout of ``PACKED``."""
     from uresnet_tpu_torch.config import (Config, DataConfig, ModelConfig,
                                           OptimConfig, ParallelConfig,
                                           TrainConfig)
 
     return Config(
         model=ModelConfig(dims=dims, depth=2, num_class=3,
-                          base_filters=4, compute_dtype="float32"),
+                          base_filters=4, compute_dtype="float32",
+                          **(PACKED[dims] if packed else {})),
         data=DataConfig(image_size=32 if dims == 2 else 16,
                         batch_size=4 if dims == 2 else 2, planes=(0,),
                         synthetic=True, augment=False),
         optim=OptimConfig(lr=3e-3),
-        train=TrainConfig(seed=11, checkpoint_dir=os.path.join(
+        train=TrainConfig(seed=11, packed_loss=packed and dims == 2,
+                          checkpoint_dir=os.path.join(
             outdir, name, "ckpt"), log_dir=os.path.join(outdir, name, "log")),
         parallel=ParallelConfig(data=2 if spatial > 1 else 1,
                                 spatial=spatial))
@@ -168,10 +174,11 @@ def _worker(outdir, usef):
         json.dump(error, f)
 
     for dims in (2, 3):
-        name = f"sp{dims}d"
-        cfg = _cfg(dims, outdir, name, spatial=2)
-        tr = Trainer(cfg, device="cpu")
-        save(name, **_step_grads(tr, tr.init_state(), _host_batch(cfg)))
+        for name, packed in ((f"sp{dims}d", False),
+                             (f"sp{dims}d_packed", True)):
+            cfg = _cfg(dims, outdir, name, spatial=2, packed=packed)
+            tr = Trainer(cfg, device="cpu")
+            save(name, **_step_grads(tr, tr.init_state(), _host_batch(cfg)))
     # last: the CLI joins the live group and shuts it down at its end
     cfg = _cfg(2, os.path.join(outdir, "cli"), "sp", spatial=2)
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(
@@ -337,11 +344,23 @@ def test_spatial_dp_equals_single_device(ranks, tmp_path, dims):
     """(data 2, spatial 2): H (2D) or D (3D) over 'spatial', batch over
     'data'; the step's loss, gradients and BN state equal the JAX
     package's one-device step and the port's one process."""
+    _check_spatial_step(ranks, tmp_path, dims, f"sp{dims}d", False)
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_spatial_dp_packed_equals_single_device(ranks, tmp_path, dims):
+    """The same with the packed layout (``PACKED``; 2D also with the
+    packed loss): the packed convs' halos are their explicit pads on the
+    shards' packed rows, the relayouts local; the step equals the JAX
+    package's one-device packed step and the port's one process."""
+    _check_spatial_step(ranks, tmp_path, dims, f"sp{dims}d_packed", True)
+
+
+def _check_spatial_step(ranks, tmp_path, dims, name, packed):
     from uresnet_tpu_torch.engine.trainer import Trainer
     from uresnet_tpu_torch.models.convert import flatten_tree
 
-    name = f"sp{dims}d"
-    cfg = _cfg(dims, str(tmp_path), name)
+    cfg = _cfg(dims, str(tmp_path), name, packed=packed)
     one = Trainer(cfg, device="cpu")
     ts = one.init_state()
     want = _step_grads(one, ts, _host_batch(cfg))

@@ -225,13 +225,6 @@ def test_crop_origin_matches_jax():
         got.numpy(), np.asarray(jax_crop_origin(sp, image_size=48)))
 
 
-def test_densify_refuses_packed_targets():
-    sp = sparse_batch(_events(1), planes=(0,), max_points=1024)
-    with pytest.raises(NotImplementedError, match="packed"):
-        dp.densify_on_device({k: T(v) for k, v in sp.items()}, image_size=32,
-                             target_phases=4)
-
-
 def test_augment_in_scatter_equals_dense_augment():
     """Decisions drawn from one generator seed, in the one order both paths
     use: augmenting the dense batch == augmenting inside the scatter."""

@@ -127,19 +127,23 @@ def densify_on_device(sparse: Batch, *, image_size: int, num_class: int = 3,
                       weight_mode: str = "class_balance",
                       nonzero_boost: float = 1.0,
                       decisions: Optional[torch.Tensor] = None,
-                      target_phases: int = 1) -> Batch:
+                      target_phases: int = 1,
+                      target_hpack: bool = False) -> Batch:
     """Sparse batch tensors (on any device) -> {'data': (B,*S,1) f32,
     'label': (B,*S) int64, 'weight': (B,*S) f32} on the same device.
 
     ``decisions`` ((D+1, B) bool, `draw_decisions`): apply
     engine/augment.py's flips/rot90 inside the scatter, by moving the
     window coordinates — equal to augmenting the dense images with the same
-    decisions, at point-cloud cost. ``target_phases > 1`` (the packed loss
-    layout of the JAX package's TPU path) is not ported."""
-    if target_phases != 1:
-        raise NotImplementedError(
-            "target_phases > 1 scatters targets into the packed TPU loss "
-            "layout, which the port does not run (ROADMAP.md)")
+    decisions, at point-cloud cost.
+
+    ``target_phases > 1`` (``target_hpack``: with the extra H phase):
+    scatter label and weight straight into the packed loss layout
+    (models/packed.py ``loss_layout_phases`` / ``pack_like_logits``),
+    (B, *S', target_phases), so the packed train loss needs no relayout of
+    full-resolution targets; ``data`` stays canonical (the packed model
+    packs its own input). The packed index is a bijection of the canonical
+    one, so the same points survive `_last_wins`."""
     values = sparse["values"].float()
     B, P, D = sparse["coords"].shape
     T = image_size
@@ -153,16 +157,33 @@ def densify_on_device(sparse: Batch, *, image_size: int, num_class: int = 3,
         flat = flat * T + s[..., d]
     flat = _last_wins(torch.where(in_win, flat, torch.full_like(flat, npix)),
                       npix)
+    img = (B,) + (T,) * D
+    flat_t, timg = flat, img
+    if target_phases > 1:
+        # position on the coarse grid major, then the phase-major channel
+        # (hp, p_0, ..., p_{D-1}): the order of pack_like_logits
+        blk, ph = s // 2, s % 2
+        pos = blk[..., 0] // 2 if target_hpack else blk[..., 0]
+        phase = blk[..., 0] % 2 if target_hpack else torch.zeros_like(pos)
+        for d in range(1, D):
+            pos = pos * (T // 2) + blk[..., d]
+        for d in range(D):
+            phase = phase * 2 + ph[..., d]
+        flat_t = torch.where(flat == npix, flat, pos * target_phases + phase)
+        timg = ((B, T // (4 if target_hpack else 2)) + (T // 2,) * (D - 1)
+                + (target_phases,))
 
     vals = torch.clamp(values * normalize_scale, 0.0, normalize_clip)
     data = _scatter_last(flat, vals, 0.0, npix)
-    label = _scatter_last(flat, sparse["labels"].long(), 0, npix)
+    label = _scatter_last(flat_t, sparse["labels"].long(), 0, npix)
     if weight_mode == "ones":
         weight = torch.ones_like(data)
     elif weight_mode == "nonzero":
-        weight = torch.ones_like(data) + (data > 0).float() * nonzero_boost
+        data_t = data if flat_t is flat else _scatter_last(flat_t, vals, 0.0,
+                                                           npix)
+        weight = torch.ones_like(data) + (data_t > 0).float() * nonzero_boost
     elif weight_mode == "file":
-        weight = _scatter_last(flat, sparse["weights"].float(), 1.0, npix)
+        weight = _scatter_last(flat_t, sparse["weights"].float(), 1.0, npix)
     elif weight_mode == "class_balance":
         # one compare-and-sum pass per class: a scatter_add into C bins per
         # row serializes its atomics (8.4 ms of a 263 ms step on the H100)
@@ -175,9 +196,8 @@ def densify_on_device(sparse: Batch, *, image_size: int, num_class: int = 3,
         weight = w_class.gather(1, label)
     else:
         raise ValueError(f"unknown weight mode {weight_mode!r}")
-    img = (B,) + (T,) * D
-    return {"data": data.reshape(img + (1,)), "label": label.reshape(img),
-            "weight": weight.reshape(img)}
+    return {"data": data.reshape(img + (1,)), "label": label.reshape(timg),
+            "weight": weight.reshape(timg)}
 
 
 def scores_at_points(sparse: Batch, scores: torch.Tensor, *,

@@ -1,8 +1,9 @@
 """The training engine (port of uresnet_tpu/engine/trainer.py).
 
 A train step densifies a sparse batch on the device (with the in-scatter
-flips/rot90 when ``data.augment``), runs the canonical U-ResNet forward in
-train mode, the pixel-weighted softmax cross-entropy, the backward with f32
+flips/rot90 when ``data.augment``), runs the U-ResNet forward in train mode
+(packed with ``model.pack``, models/packed.py), the pixel-weighted softmax
+cross-entropy, the backward with f32
 weight gradients (ops/conv.py) and the hand-written Adam (engine/optim.py).
 Frozen parameters (``optim.freeze``) do not require grad, so autograd
 computes no weight gradient for them; Adam leaves them, and their moments,
@@ -18,8 +19,10 @@ Adam, but draws its own augmentation stream.
 Validation samples ``val_batches`` held-out batches through ``eval_step``
 over the BN-folded forward, or with ``train.val_exact`` runs the
 exactly-once ``evaluate_dataset`` (engine/evaluator.py). 2D and 3D
-(``model.dims``) train alike. The packed TPU layouts (``model.pack``,
-``train.packed_loss``) are accepted and run canonical;
+(``model.dims``) train alike. ``train.packed_loss`` takes the packed
+head's logits and targets in the same layout (a sparse batch's label and
+weight scattered straight into it), as the JAX trainer does; evaluation
+and the serving export stay canonical in both packages.
 ``steps_per_dispatch = K`` runs K plain steps per loop turn.
 
 Data parallelism (parallel/mesh.py): one process per device, each with a
@@ -83,6 +86,8 @@ from uresnet_tpu_torch.engine.optim import (AdamState, adam_init, adam_update,
 from uresnet_tpu_torch.models.convert import (flatten_tree, jax_train_state,
                                               load_jax_train_state)
 from uresnet_tpu_torch.models.fold import KERNEL_BACKENDS
+from uresnet_tpu_torch.models.packed import (_hpack_level, loss_layout_phases,
+                                             pack_like_logits)
 from uresnet_tpu_torch.models.uresnet import UResNet
 from uresnet_tpu_torch.parallel import tp
 from uresnet_tpu_torch.parallel.mesh import (Mesh, all_reduce_counts,
@@ -146,8 +151,8 @@ class Trainer:
                 f"batch size or set parallel.data to a divisor (e.g. "
                 f"parallel.data=1 for single-device runs)")
         # The JAX trainer's warning for 3D without model.pack is not ported:
-        # it is about an XLA tile-padding blowup on the TPU, and the port
-        # runs every layout canonical.
+        # it is about an XLA tile-padding blowup on the TPU; on the card the
+        # canonical 3D layout fits (PERF.md measures both layouts).
         if cfg.model.kernel_backend not in KERNEL_BACKENDS:
             raise ValueError(
                 f"model.kernel_backend must be one of {KERNEL_BACKENDS}, got "
@@ -231,9 +236,20 @@ class Trainer:
         return {k: tp.local_slice(v, 1, axis) if k in _IMAGE_KEYS else v
                 for k, v in batch.items()}
 
-    def _prepare(self, batch: Dict, decisions=None) -> Dict:
+    @property
+    def _loss_phases(self) -> int:
+        """Phases per logit of the packed train loss (``train.packed_loss``
+        on a packed level 0), else 1."""
+        if not self.cfg.train.packed_loss:
+            return 1
+        return loss_layout_phases(self.cfg.model)
+
+    def _prepare(self, batch: Dict, decisions=None,
+                 packed_targets: bool = False) -> Dict:
         """A sparse batch is densified on the device; ``decisions`` apply
-        the flips/rot90 inside the scatter. Dense batches pass through."""
+        the flips/rot90 inside the scatter; ``packed_targets`` scatters the
+        label and weight into the packed loss layout. Dense batches pass
+        through."""
         if "coords" not in batch:
             return batch
         d = self.cfg.data
@@ -241,10 +257,36 @@ class Trainer:
             batch, image_size=d.image_size, num_class=self.cfg.model.num_class,
             normalize_scale=d.normalize_scale,
             normalize_clip=d.normalize_clip, weight_mode=d.weight_mode,
-            nonzero_boost=d.weight_nonzero_boost, decisions=decisions)
+            nonzero_boost=d.weight_nonzero_boost, decisions=decisions,
+            target_phases=self._loss_phases if packed_targets else 1,
+            target_hpack=packed_targets and _hpack_level(self.cfg.model, 0))
+
+    def _pack_target(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, *S[, K]) per-pixel target -> the packed-head layout
+        (B, *S', phases[, K]), in the packed logits' phase order."""
+        k = None if x.dim() == self.cfg.model.dims + 1 else x.shape[-1]
+        p = pack_like_logits(x[..., None] if k is None else x,
+                             self.cfg.model)
+        return p if k is None else p.reshape(p.shape[:-1]
+                                             + (self._loss_phases, k))
+
+    def _targets(self, batch: Dict, logits: torch.Tensor):
+        """(label, weight, data) of ``batch`` in the layout of ``logits``:
+        canonical, or the packed loss layout (B, *S', phases[, K]), where
+        the label and weight may arrive packed from the densify."""
+        if logits.dim() == batch["data"].dim():
+            return batch["label"], batch["weight"], batch["data"]
+        if batch["label"].dim() == self.cfg.model.dims + 2:  # arrived packed
+            label, weight = batch["label"], batch["weight"]
+        else:
+            label = self._pack_target(batch["label"])
+            weight = self._pack_target(batch["weight"])
+        return label, weight, self._pack_target(batch["data"])
 
     def _loss_fn(self, model: UResNet, batch: Dict):
-        """(loss, logits, new BN state) of one batch in train mode.
+        """(loss, logits, new BN state) of one batch in train mode; the
+        logits in the loss layout: canonical (B, *S, K) or, on the packed
+        train path, (B, *S', phases, K) (`_targets`).
 
         Each rank of the mesh's batch group (data x spatial, size n) holds
         an equal share of the global batch's pixels, and its loss is its
@@ -255,15 +297,23 @@ class Trainer:
         same loss."""
         group = self.mesh.batch.group
         normalize = self.cfg.train.loss_normalize
-        logits, new_state = model(batch["data"], train=True, mesh=self.mesh)
+        ph = self._loss_phases
+        packed = (ph > 1
+                  or batch["label"].dim() == self.cfg.model.dims + 2)
+        logits, new_state = model(batch["data"], train=True, mesh=self.mesh,
+                                  packed_logits=packed)
+        if packed:
+            logits = logits.reshape(logits.shape[:-1]
+                                    + (ph, self.cfg.model.num_class))
+        label, weight, _ = self._targets(batch, logits)
         if group is not None and normalize == "weight_sum":
-            w = batch["weight"].float()
+            w = weight.float()
             den = all_reduce_sum(w.sum(), group)
-            loss = (torch.sum(w * softmax_xent_per_pixel(logits, batch["label"]))
+            loss = (torch.sum(w * softmax_xent_per_pixel(logits, label))
                     * self.mesh.batch.size / torch.clamp(den, min=1e-6))
         else:
-            loss = weighted_softmax_xent(logits, batch["label"],
-                                         batch["weight"], normalize=normalize)
+            loss = weighted_softmax_xent(logits, label, weight,
+                                         normalize=normalize)
         return loss, logits, new_state
 
     def _global_counts(self, logits, batch, group, *, loss_sums=False
@@ -294,7 +344,8 @@ class Trainer:
             decisions = draw_decisions(gen, B * mesh.data, cfg.model.dims)[
                 :, d * B:(d + 1) * B]
         sparse = "coords" in batch
-        batch = self._prepare(batch, decisions if sparse else None)
+        batch = self._prepare(batch, decisions if sparse else None,
+                              packed_targets=sparse and self._loss_phases > 1)
         if decisions is not None and not sparse:
             batch = augment_batch(batch, dims=cfg.model.dims,
                                   decisions=decisions)
@@ -324,13 +375,17 @@ class Trainer:
             for k, v in flatten_tree(new_state).items():
                 flat[k].data = v
         metrics = {"loss": loss}
+        if with_metrics:
+            # the targets and the charge in the loss layout: the per-pixel
+            # metrics are layout-invariant
+            label, weight, data = self._targets(batch, logits)
+            tb = {"label": label, "weight": weight, "data": data}
         if with_metrics and group is not None:
             metrics.update(metrics_from_counts(
-                self._global_counts(logits.detach(), batch, group)))
+                self._global_counts(logits.detach(), tb, group)))
         elif with_metrics:
             metrics.update(segmentation_metrics(
-                logits.detach(), batch["label"], batch["data"],
-                num_class=cfg.model.num_class))
+                logits.detach(), label, data, num_class=cfg.model.num_class))
         key = np.array([ts.key[0], (int(ts.key[1]) + 1) & 0xFFFFFFFF], np.uint32)
         return TrainState(model=model, opt=opt, key=key), metrics
 

@@ -3,8 +3,9 @@
 
 entry(device)       -> (fn, example_args): the flagship 2D U-ResNet's eval
                        forward (base 16, depth 5, 3 classes, bf16) and a
-                       2 x 256^2 x 1 input; ``model.pack`` is ignored, as
-                       everywhere in the port (canonical layout).
+                       2 x 256^2 x 1 input; with its ``model.pack`` the
+                       packed eval forward (models/packed.py), as the JAX
+                       hook's.
 dryrun_multichip(n, device)
                     -> one train step of every parallel leg over n ranks
                        on tiny shapes, each against one process: data

@@ -26,6 +26,7 @@ from torch import nn
 from uresnet_tpu_torch.ops.conv import (conv, conv_init, conv_transpose,
                                         spatial_dims)
 from uresnet_tpu_torch.ops.norm import batch_norm, batch_norm_train, bn_init
+from uresnet_tpu_torch.ops.pack import conv_packed
 from uresnet_tpu_torch.parallel.halo import sharded_conv
 from uresnet_tpu_torch.parallel.mesh import Mesh
 from uresnet_tpu_torch.parallel.tp import copy_to_model, gather_channels
@@ -35,7 +36,8 @@ from uresnet_tpu_torch.parallel.tp import copy_to_model, gather_channels
 class BlockCtx:
     """Static per-call context: dims, compute dtype, BN hyperparameters,
     train or eval, and the parallel mesh (parallel/mesh.py; None: one
-    process).
+    process). ``conv_packed`` runs the packed layout's convs
+    (models/packed.py).
 
     Under the mesh the train-mode BN statistics span its batch group. With
     a spatial axis every conv is the halo conv of parallel/halo.py on this
@@ -89,6 +91,20 @@ class BlockCtx:
                                   compute_dtype=self.compute_dtype)
         return self._halo(x, p, stride, "convt", self.compute_dtype, None)
 
+    def conv_packed(self, x, w, *, padding="SAME", stride=1,
+                    compute_dtype=None, precision=None):
+        """A packed conv of ops/pack.py (``padding`` 'SAME' or explicit
+        pads); with a spatial axis the halo conv of its pads on this rank's
+        packed rows."""
+        cd = compute_dtype or self.compute_dtype
+        if self.mesh is None or self.mesh.spatial == 1:
+            return conv_packed(x, w, padding=padding, stride=stride,
+                               compute_dtype=cd, precision=precision)
+        spatial_dims(x, self.dims)
+        return sharded_conv(x, w, axis=self.mesh.spatial_axis, stride=stride,
+                            compute_dtype=cd, precision=precision,
+                            padding=None if padding == "SAME" else padding)
+
     def _halo(self, x, p, stride, kind, compute_dtype, precision):
         spatial_dims(x, self.dims)
         y = sharded_conv(x, p["w"], axis=self.mesh.spatial_axis,
@@ -128,12 +144,15 @@ class BatchNorm(nn.Module):
         for k, v in state.items():
             self.register_buffer(k, v)
 
-    def forward(self, x, ctx: BlockCtx):
+    def forward(self, x, ctx: BlockCtx, phases: int = 1):
+        """``phases``: ``x`` is space-to-depth packed (ops/norm.py)."""
         params, state = dict(self.named_parameters()), dict(self.named_buffers())
         if ctx.train:
             return batch_norm_train(x, params, state, momentum=ctx.bn_momentum,
-                                    eps=ctx.bn_eps, group=ctx.group)
-        return batch_norm(x, params, state, eps=ctx.bn_eps), state
+                                    eps=ctx.bn_eps, group=ctx.group,
+                                    phases=phases)
+        return batch_norm(x, params, state, eps=ctx.bn_eps,
+                          phases=phases), state
 
 
 class ConvBN(nn.Module):

@@ -16,9 +16,10 @@
 
 Submodules carry the JAX unit names (``stem``, ``enc{l}_b{b}``,
 ``down{l}``, ``mid_b{b}``, ``up{l}``, ``dec{l}_b{b}``, ``head``).
-``cfg.pack`` (a TPU lane-filling layout with canonical outputs) is
-accepted and runs canonical. ``cfg.remat`` checkpoints activations in the
-train forward, per U-Net level or per unit, with
+``cfg.pack`` runs the space-to-depth packed forward of models/packed.py
+(the JAX package's TPU layout, equal outputs from the same parameters),
+as ``uresnet_apply`` dispatches on it. ``cfg.remat`` checkpoints
+activations in the train forward, per U-Net level or per unit, with
 ``torch.utils.checkpoint``: the recomputation in the backward reruns BN
 on the same (unwritten) buffers and its new stats are discarded, so the
 running stats move once per step.
@@ -34,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from uresnet_tpu_torch.config import ModelConfig
 from uresnet_tpu_torch.models.blocks import BlockCtx, Conv, ConvBN, ResBlock
+from uresnet_tpu_torch.models.packed import packed_forward
 from uresnet_tpu_torch.ops.conv import head_precision
 from uresnet_tpu_torch.utils.dtypes import canonical_dtype
 
@@ -83,13 +85,17 @@ class UResNet(nn.Module):
         self.head = Conv(cfg.final_kernel, f, cfg.num_class, use_bias=True,
                          **kw)
 
-    def forward(self, x: torch.Tensor, train: bool = False, mesh=None):
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None,
+                packed_logits: bool = False):
         """The BN-state tree is keyed as ``uresnet_apply``'s: new detached
         running stats in train mode, the buffers in eval mode. ``mesh``
         (parallel/mesh.py): this rank's place in the parallel step; then
         ``x`` is its share of the batch (its rows under a spatial axis),
         the model holds its channel slices under a model axis
-        (parallel/tp.py), and the logits are whole in channels."""
+        (parallel/tp.py), and the logits are whole in channels. With
+        ``cfg.pack`` the packed forward runs; ``packed_logits`` then
+        returns its head's logits in the packed layout
+        (models/packed.py)."""
         cfg = self.cfg
         ctx = BlockCtx(dims=cfg.dims,
                        compute_dtype=canonical_dtype(cfg.compute_dtype),
@@ -98,6 +104,11 @@ class UResNet(nn.Module):
         level, block = (remat_wrappers(cfg.remat)
                         if train and torch.is_grad_enabled()
                         else remat_wrappers(False))
+        if cfg.pack:
+            logits, new_state = packed_forward(self, x, ctx, level=level,
+                                               block=block,
+                                               packed_logits=packed_logits)
+            return logits, {k: new_state[k] for k in self._unit_order}
         unit = self.get_submodule
         new_state = {}
 

@@ -129,9 +129,9 @@ def true_f32():
 
 def _conf(x, stride, padding, transposed):
     """``aten.convolution``'s arguments after the weight, for ``x``'s
-    spatial axes."""
+    spatial axes (``stride``: one per axis)."""
     n = x.dim() - 2
-    return (None, [stride] * n, list(padding), [1] * n, transposed, [0] * n, 1)
+    return (None, list(stride), list(padding), [1] * n, transposed, [0] * n, 1)
 
 
 class _ConvF32WGrad(torch.autograd.Function):
@@ -219,31 +219,41 @@ class _RoundOperand(torch.autograd.Function):
         return g, None
 
 
-def conv_general(x: torch.Tensor, w: torch.Tensor, *, stride: int,
+def conv_general(x: torch.Tensor, w: torch.Tensor, *, stride,
                  compute_dtype: torch.dtype, kind: str = "conv",
                  precision: Optional[torch.dtype] = None,
-                 unpadded: Optional[int] = None) -> torch.Tensor:
+                 unpadded: Optional[int] = None,
+                 padding=None) -> torch.Tensor:
     """The one conv entry point: (B, *S, C) x (*k, C, Co) -> (B, *S', Co),
     2 or 3 spatial axes.
 
-    ``kind='conv'``: SAME conv at ``stride``; ``kind='convt'``: SAME
-    fractionally-strided conv (output ``stride`` x larger). 16-bit compute
-    dtypes get the f32 weight gradient of `_ConvF32WGrad` (stock autograd
-    when no weight gradient is taken); an explicit ``precision`` (see
-    `head_precision`) runs `_ConvTF32`; f32 compute runs `_ConvTrueF32`.
-    ``unpadded`` (a conv's axis of ``x``, 1 for H or D): that axis is not
-    padded, its context came with ``x`` (a spatial shard's halo,
-    parallel/halo.py)."""
+    ``kind='conv'``: SAME conv at ``stride`` (an int, or one per spatial
+    axis); ``padding``: explicit (lo, hi) pads instead of SAME, one pair
+    for every axis or a pair per axis (the packed convs of ops/pack.py);
+    ``kind='convt'``: SAME fractionally-strided conv (output ``stride`` x
+    larger). 16-bit compute dtypes get the f32 weight gradient of
+    `_ConvF32WGrad` (stock autograd when no weight gradient is taken); an
+    explicit ``precision`` (see `head_precision`) runs `_ConvTF32`; f32
+    compute runs `_ConvTrueF32`. ``unpadded`` (a conv's axis of ``x``, 1
+    for H or D): that axis is not padded, its context came with ``x`` (a
+    spatial shard's halo, parallel/halo.py)."""
     n = spatial_dims(x)
+    strides = (stride,) * n if isinstance(stride, int) else tuple(stride)
     if precision is not None:  # round operands, compute in compute_dtype
         x = x.to(precision)
         w = _RoundOperand.apply(w, precision)
     x = x.to(compute_dtype)
     xn = x.permute(0, n + 1, *range(1, n + 1))  # (B, C, *S), channels-last
-    k = w.shape[0]
     if kind == "conv":
-        pads = [(0, 0) if d + 1 == unpadded
-                else _same_pads(xn.shape[2 + d], k, stride) for d in range(n)]
+        if padding is None:
+            pads = [_same_pads(xn.shape[2 + d], w.shape[d], strides[d])
+                    for d in range(n)]
+        elif isinstance(padding[0], int):
+            pads = [tuple(padding)] * n
+        else:
+            pads = [tuple(p) for p in padding]
+        if unpadded is not None:
+            pads[unpadded - 1] = (0, 0)
         if any(lo != hi for lo, hi in pads):
             # asymmetric: pad (last axis first, as F.pad takes it), then
             # cuDNN pads 0
@@ -258,20 +268,20 @@ def conv_general(x: torch.Tensor, w: torch.Tensor, *, stride: int,
     else:
         raise ValueError(f"unknown conv kind {kind!r}")
     if precision is not None:
-        y = _ConvTF32.apply(xn, wn.to(compute_dtype), stride, padding,
+        y = _ConvTF32.apply(xn, wn.to(compute_dtype), strides, padding,
                             transposed)
     elif (compute_dtype.itemsize < 4 and torch.is_grad_enabled()
           and w.requires_grad):
-        y = _ConvF32WGrad.apply(xn, wn.float(), stride, padding, transposed)
+        y = _ConvF32WGrad.apply(xn, wn.float(), strides, padding, transposed)
     elif compute_dtype == torch.float32:
-        y = _ConvTrueF32.apply(xn, wn.to(compute_dtype), stride, padding,
+        y = _ConvTrueF32.apply(xn, wn.to(compute_dtype), strides, padding,
                                transposed)
     else:
         y = torch.ops.aten.convolution(
-            xn, wn.to(compute_dtype), *_conf(xn, stride, padding, transposed))
+            xn, wn.to(compute_dtype), *_conf(xn, strides, padding, transposed))
     if kind == "convt":
         y = y[(slice(None), slice(None))
-              + tuple(slice(0, x.shape[1 + d] * stride) for d in range(n))]
+              + tuple(slice(0, x.shape[1 + d] * strides[d]) for d in range(n))]
     return y.permute(0, *range(2, n + 2), 1)
 
 

@@ -9,6 +9,12 @@ Under data parallelism the train form's statistics are the global batch's,
 as the JAX package's are under its batch-sharded mesh: one differentiable
 SUM all-reduce per call of the packed per-channel sums (no
 ``nn.SyncBatchNorm``, whose running variance is unbiased too).
+
+A space-to-depth packed activation (ops/pack.py) holds ``phases`` spatial
+phases of each channel side by side, (..., phases * C): both forms view it
+as (..., phases, C), so the phases are summed into the per-channel sums
+(before that one all-reduce in the train form) and the statistics and
+running stats are those of the unpacked tensor, shape (C,).
 """
 
 from __future__ import annotations
@@ -34,32 +40,46 @@ def bn_init(ch: int, param_dtype: torch.dtype = torch.float32,
 
 
 def _affine(x, params, mean, var, eps):
-    """y = x*g + b, g = scale/sqrt(var+eps), b = bias - mean*g: g, b in f32,
-    the one elementwise pass in the activation dtype."""
-    g = torch.rsqrt(var + eps) * params["scale"].float()
-    b = params["bias"].float() - mean * g
+    """y = x*g + b, g = scale/sqrt(var+eps), b = bias - mean*g: g, b in the
+    statistics' dtype (f32, or f64 for f64 activations), the one
+    elementwise pass in the activation dtype."""
+    g = torch.rsqrt(var + eps) * params["scale"].to(var.dtype)
+    b = params["bias"].to(var.dtype) - mean * g
     return x * g.to(x.dtype) + b.to(x.dtype)
 
 
+def _by_phase(x: torch.Tensor, phases: int) -> torch.Tensor:
+    """(..., phases * C) viewed as (..., phases, C)."""
+    if phases == 1:
+        return x
+    return x.reshape(x.shape[:-1] + (phases, x.shape[-1] // phases))
+
+
 def batch_norm(x: torch.Tensor, params: dict, state: dict, *,
-               eps: float = 1e-3) -> torch.Tensor:
+               eps: float = 1e-3, phases: int = 1) -> torch.Tensor:
     """Eval form: normalize over all dims but the trailing channel dim with
-    the running stats."""
-    return _affine(x, params, state["mean"].float(), state["var"].float(), eps)
+    the running stats; ``phases``: a packed tensor (module docstring)."""
+    y = _affine(_by_phase(x, phases), params, state["mean"].float(),
+                state["var"].float(), eps)
+    return y.reshape(x.shape)
 
 
 def batch_norm_train(x: torch.Tensor, params: dict, state: dict, *,
-                     momentum: float = 0.99, eps: float = 1e-3, group=None
-                     ) -> Tuple[torch.Tensor, dict]:
-    """Train form: returns (y, new_state). Batch statistics in f32 over all
-    dims but the channel, biased ``var = E[x^2] - E[x]^2``; gradients flow
-    through them. The new running stats are new, detached tensors.
+                     momentum: float = 0.99, eps: float = 1e-3, group=None,
+                     phases: int = 1) -> Tuple[torch.Tensor, dict]:
+    """Train form: returns (y, new_state). Batch statistics in f32 (f64 for
+    f64 activations) over all dims but the channel, biased ``var = E[x^2]
+    - E[x]^2``; gradients flow through them. The new running stats are
+    new, detached tensors.
 
     ``group`` (a data-parallel process group): the statistics are the
     global batch's. The f32 ``sum x``, ``sum x^2`` and the element count
     go through one SUM all-reduce whose backward all-reduces their
-    gradients, so every rank computes the same stats and running stats."""
-    x32 = x.float()
+    gradients, so every rank computes the same stats and running stats.
+    ``phases``: a packed tensor (module docstring)."""
+    shape = x.shape
+    x = _by_phase(x, phases)
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
     dims = tuple(range(x.dim() - 1))
     if group is None:
         mean = x32.mean(dims)
@@ -77,4 +97,4 @@ def batch_norm_train(x: torch.Tensor, params: dict, state: dict, *,
             "mean": state["mean"] * momentum + mean * (1.0 - momentum),
             "var": state["var"] * momentum + var * (1.0 - momentum),
         }
-    return _affine(x, params, mean, var, eps), new_state
+    return _affine(x, params, mean, var, eps).reshape(shape), new_state

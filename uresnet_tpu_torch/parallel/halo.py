@@ -21,6 +21,14 @@ o - s*i in [0, k), so the outputs [s*r0, s*(r0 + n)) of a shard read rows
 none from the next (`transpose_halo`; for the model's 3-tap stride-2
 ``up`` convs, one row from the previous shard).
 
+The packed layout's convs (ops/pack.py, models/packed.py) pad explicitly,
+and their halo is the sharded dim's pads: the packed stride-1 k=3 conv
+(1, 1), one packed row from each side; the packed down conv (k=2, (0, 1))
+one row from the next shard; the packed up conv (k=2, (1, 0)) one row from
+the previous. The relayouts between them stay local: a shard's rows start
+on an even row at every packed level, so its space-to-depth is its share
+of the global one.
+
 The exchange is an ``all_gather`` (list form) of every rank's edge rows
 over the spatial group, which NCCL and gloo both take for CUDA tensors
 (gloo has no send/recv for them); its backward returns each halo row's
@@ -126,28 +134,37 @@ def halo_exchange(x: torch.Tensor, lo: int, hi: int, dim: int,
 
 
 def sharded_conv(x: torch.Tensor, w: torch.Tensor, *, axis: Axis,
-                 stride: int = 1, kind: str = "conv",
+                 stride=1, kind: str = "conv",
                  compute_dtype: torch.dtype = torch.float32,
                  precision: Optional[torch.dtype] = None,
-                 dim: int = 1) -> torch.Tensor:
+                 dim: int = 1, padding=None) -> torch.Tensor:
     """SAME conv (``kind='conv'``) or SAME transposed conv (``'convt'``)
     of this rank's shard ``x`` (B, *S, C), split along ``dim`` over
     ``axis``, with the whole kernel ``w``: this rank's shard of the
     unsharded conv's output. A strided conv needs a local extent that the
-    stride divides (every shard then starts on a stride phase)."""
+    stride divides (every shard then starts on a stride phase).
+
+    ``padding`` (explicit (lo, hi) pads of ops/conv.py ``conv_general``:
+    the packed convs of ops/pack.py): the halo is the sharded dim's pads,
+    as SAME's halo is its pads. ``stride`` may be one per axis (the
+    H-packed up conv strides H alone)."""
     k = w.shape[dim - 1]
+    s = stride if isinstance(stride, int) else stride[dim - 1]
     if kind == "convt":
         lo, hi = transpose_halo(k, stride)
         y = conv_general(halo_exchange(x, lo, hi, dim, axis), w,
                          stride=stride, compute_dtype=compute_dtype,
                          kind=kind, precision=precision)
         return y.narrow(dim, stride * lo, stride * x.shape[dim])
-    if x.shape[dim] % stride:
+    if x.shape[dim] % s:
         raise ValueError(
             f"local shard extent {x.shape[dim]} along axis {dim} is not a "
-            f"multiple of the stride {stride}; use fewer 'spatial' shards "
+            f"multiple of the stride {s}; use fewer 'spatial' shards "
             f"or an image size with more factors of 2")
-    lo, hi = same_halo(k, stride)
+    if padding is None:
+        lo, hi = same_halo(k, s)
+    else:
+        lo, hi = padding if isinstance(padding[0], int) else padding[dim - 1]
     return conv_general(halo_exchange(x, lo, hi, dim, axis), w, stride=stride,
                         compute_dtype=compute_dtype, kind=kind,
-                        precision=precision, unpadded=dim)
+                        precision=precision, unpadded=dim, padding=padding)

@@ -12,7 +12,13 @@ _DTYPES = {
 }
 
 
-def canonical_dtype(name: str) -> torch.dtype:
+def canonical_dtype(name) -> torch.dtype:
+    """A config's dtype name as a torch dtype. A torch dtype passes
+    through: no config names float64, but a float64 model (its config's
+    ``compute_dtype=torch.float64``) is how chip_smoke.py checks the packed
+    gradients past f32's rounding."""
+    if isinstance(name, torch.dtype):
+        return name
     try:
         return _DTYPES[name]
     except KeyError:
