@@ -12,25 +12,25 @@ configs/train_3d_192.yaml, with random seeded weights:
                 limit (nvidia-smi) and the torch / CUDA versions;
   2. build    — compiles uresnet_tpu_torch/csrc/*.cu with nvcc (sm_90a);
   3. kernels  — the fused conv's three kernels vs the plain version: the
-                tensor-core kernel (bf16) and the f32 tensor-core kernel
-                (3xTF32) at every shape their forward gives them
-                (enumerated from the model) x {residual+ReLU, ReLU,
-                residual}, plus a ragged spatial case (f32: and 8- and
-                40-channel cases); every f32 case also against a float64
+                tensor-core kernel in bf16 and in f16, and the f32
+                tensor-core kernel (3xTF32), at every shape their forward
+                gives them (enumerated from the model) x {residual+ReLU,
+                ReLU, residual}, plus a ragged spatial case (f32: and 8-
+                and 40-channel cases); the channel tails in all three
+                dtypes (C or Co not a multiple of 16, rows not 16-byte
+                multiples: 1->16, 3->5, 12->16, 16->4, 20->36, 24->40,
+                40->24 at 37x53); every f32 case also against a float64
                 conv of the same operands at 1e-5 of the max, beside the
-                plain version's and the CUDA-core kernel's errors; the
-                CUDA-core kernel on ragged channel counts (f32 20->36, bf16
-                24->40); the launch counters show which kernel ran each.
-                Then at batch 32, as the forward calls it, checks the
-                tensor-core kernel again and times it beside its bound, the
-                CUDA-core kernel on the same bf16 operands, the plain
-                version and the cuDNN bf16 composition; the f32 kernel
-                likewise at the f32 forward's shapes, beside the
-                CUDA-core kernel, the plain version, cuDNN's f32
+                plain version's error; the launch counters show which
+                kernel ran each. Then at batch 32, as the forward calls it,
+                checks the bf16 and the f16 kernel again and times each
+                beside its bound, the plain version and the cuDNN
+                composition in its dtype; the f32 kernel likewise at the
+                f32 forward's shapes, beside the plain version, cuDNN's f32
                 composition and both bounds (CUDA-core f32, tensor-core
-                3xTF32); the CUDA-core kernel's
-                own run (two ragged-channel calls at batch 32, counted);
-                the v1 entry point at two shapes;
+                3xTF32); the channel-tail route's own run (two calls at
+                batch 32, counted: bf16 24->40, f32 20->36); the v1 entry
+                point at two shapes;
   4. serve    — 64 synthetic 512^2 events through ``python -m
                 uresnet_tpu_torch.cli.infer`` (2 batches of 32, the default
                 streamed sparse export) from a checkpoint in the JAX npz
@@ -39,10 +39,13 @@ configs/train_3d_192.yaml, with random seeded weights:
   4b. serve32 — the same events with ``model.compute_dtype=float32``: the
                 f32 tensor-core kernel launches 44 times per batch, and the
                 scores agree with the bf16 run's;
+  4c. serve16 — the same events with ``model.compute_dtype=float16``: the
+                f16 tensor-core kernel launches 44 times per batch, and the
+                scores agree with the bf16 run's;
   5. forward  — the same events with ``kernel_backend=xla`` (cuDNN) for
-                agreement, and both whole forwards timed; the f32 forward
-                timed on the f32 tensor-core kernel and on the CUDA-core
-                kernel in turns, and on cuDNN's true f32.
+                agreement, and both whole forwards timed; the f16 forward
+                on its kernel; the f32 forward on the f32 tensor-core
+                kernel and on cuDNN's true f32.
 
   6. profile  — ``torch.profiler`` over both whole forwards and the f32
                 forward on its kernel: per forward
@@ -244,9 +247,11 @@ VOL_BATCHES = ((1, False), (2, False), (4, False), (4, "block"))
 
 # kernel vs plain tolerances. bf16: one bf16 ulp of the output (<= 2^-7
 # relative; both sides round the same f32 sum once) plus 1e-4 of the
-# tensor's max-abs for f32 accumulation-order differences near zero.
-# f32 (TF32 off on both sides): 1e-4 of the max-abs.
+# tensor's max-abs for f32 accumulation-order differences near zero; f16
+# likewise with one f16 ulp (<= 2^-10 relative). f32 (TF32 off on both
+# sides): 1e-4 of the max-abs.
 BF16_REL, BF16_SLACK, F32_REL = 2.0 ** -7, 1e-4, 1e-4
+F16_REL = 2.0 ** -10
 # the f32 tensor-core kernel against a float64 conv of the same operands,
 # relative to the max: true f32 and 3xTF32 read ~5e-7 at K = 9*C up to
 # 4608, one TF32 product ~3e-4 (tests/test_torch_f32_split.py)
@@ -264,7 +269,8 @@ KERNELS_ONLY = False  # phases 1-3 alone (--kernels-only)
 LAYOUT_KERNELS = ("nchwtonhwc", "nhwctonchw", "transpose", "permute",
                   "ncdhw", "ndhwc")
 # an H100 SXM's published peaks (NVIDIA data sheet, dense), for the bounds;
-# TF32 494.7 TFLOP/s dense (the data sheet's 989.4 is with sparsity)
+# BF16_PEAK is the bf16 and fp16 tensor-core rate; TF32 494.7 TFLOP/s dense
+# (the data sheet's 989.4 is with sparsity)
 HBM_BYTES_PER_S, BF16_PEAK, F32_PEAK = 3.35e12, 989e12, 67e12
 TF32_PEAK = 494.7e12
 
@@ -342,8 +348,9 @@ def check_close(got, want, dtype):
     scale = want.abs().max().item()
     if not torch.isfinite(got).all():
         raise AssertionError("kernel output is not finite")
-    if dtype == torch.bfloat16:
-        bad = err > BF16_REL * want.abs() + BF16_SLACK * scale
+    if dtype in (torch.bfloat16, torch.float16):
+        rel = BF16_REL if dtype == torch.bfloat16 else F16_REL
+        bad = err > rel * want.abs() + BF16_SLACK * scale
     else:
         bad = err > F32_REL * scale
     if bad.any():
@@ -355,10 +362,10 @@ def check_close(got, want, dtype):
 def bound(B, H, W, C, Co, res, dtype, tf32x3=False):
     """(least ms, what bounds it) for one fused conv on an H100: its bytes
     (x, w, scale, bias, residual read once, y written once) over HBM's rate
-    against its FLOP over the peak rate of the units it runs on (bf16:
-    tensor cores; f32: CUDA cores; f32 with ``tf32x3``: three TF32 tensor-
-    core products per term, 3 x FLOP at the TF32 peak)."""
-    e = 2 if dtype == torch.bfloat16 else 4
+    against its FLOP over the peak rate of the units it runs on (bf16 and
+    f16: tensor cores; f32: CUDA cores; f32 with ``tf32x3``: three TF32
+    tensor-core products per term, 3 x FLOP at the TF32 peak)."""
+    e = torch.tensor([], dtype=dtype).element_size()
     px = B * H * W
     nbytes = e * (px * C + 9 * C * Co + px * Co * (2 if res else 1)) + 8 * Co
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -402,27 +409,6 @@ def cudnn_composition(x, w, bias, r):
     return torch.relu(y + r) if r is not None else torch.relu(y)
 
 
-def c_entry(fused_mod, name, x, w, scale, bias, r, relu=True):
-    """A kernel called through the library's C entry ``name``, around the
-    wrapper's routing: the CUDA-core kernel on operands the wrapper sends
-    to a tensor-core kernel. Timed beside the routed kernel and counted
-    nowhere."""
-    out = torch.empty(x.shape[:3] + w.shape[3:], dtype=x.dtype, device=x.device)
-    err = getattr(fused_mod._lib(), name)(
-        x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        r.data_ptr() if r is not None else None, out.data_ptr(),
-        *x.shape, w.shape[3], int(relu), torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    return out
-
-
-def cuda_core(fused_mod, x, w, scale, bias, r, relu=True):
-    """The CUDA-core kernel on ``x``'s dtype, through its C entry."""
-    return c_entry(fused_mod, fused_mod._ENTRY[x.dtype], x, w, scale, bias, r,
-                   relu)
-
-
 def conv_f64(x, w, scale, bias, r, relu=True):
     """The fused conv's function in float64 on the card (cuDNN's double
     conv): the yardstick that tells f32 accuracy from TF32's."""
@@ -461,11 +447,21 @@ def forward_calls(fold, serve, cfg, dev):
     return calls
 
 
+# the channel-tail cases of phase 3 at 37x53, in every dtype: C or Co not
+# a multiple of 16, and rows that are not 16-byte multiples (C or Co odd,
+# or not a multiple of 8; f32: not of 4)
+RAGGED_CASES = ((1, 16), (3, 5), (12, 16), (16, 4), (20, 36), (24, 40),
+                (40, 24))
+# each dtype's kernel counter (ops/cuda/conv2d.py kernel_for)
+KERNEL_OF = {torch.bfloat16: "tensor_core", torch.float16: "f16_tensor_core",
+             torch.float32: "f32_tensor_core"}
+
+
 def kernel_phase(fused_mod, fold, serve, serve32, cfg, dev, card):
     """The three kernels vs the plain version, the f32 cases also vs
-    float64; which kernel each case ran; the tensor-core kernel's times at
-    the bf16 forward's shapes at batch 32. Returns the tensor-core kernel's
-    record and the f32 tensor-core kernel's worst error."""
+    float64; which kernel each case ran; the bf16 and f16 kernels' times at
+    the 16-bit forward's shapes at batch 32. Returns the bf16 and f16
+    kernels' records and the f32 tensor-core kernel's worst error."""
     calls = forward_calls(fold, serve, cfg, dev)
     shapes = sorted({k[:4] for k in calls}, key=lambda s: (-s[2], s[0]))
     shapes32 = sorted({k[:4] for k in forward_calls(fold, serve32, cfg, dev)},
@@ -475,11 +471,12 @@ def kernel_phase(fused_mod, fold, serve, serve32, cfg, dev, card):
           f"{shapes32}", flush=True)
     operands = operand_maker(dev, SEED)
 
-    def check_cases(cases, counter):
+    def check_cases(cases, dtype, what):
+        """Each case once, through the op, against the plain version (f32
+        also against float64); all on ``dtype``'s kernel counter."""
         worst = 0.0
-        fused_mod.launches_tensor_core = fused_mod.launches_cuda_core = 0
-        fused_mod.launches_f32_tensor_core = 0
-        for (C, Co, H, W), dtype, res, relu in cases:
+        counted(fused_mod, lambda: None)  # every count to 0
+        for (C, Co, H, W), res, relu in cases:
             x, w, scale, bias, r = operands(1, H, W, C, Co, dtype, res)
             got = fused_mod.fused_conv3x3_bn_relu_v2(x, w, scale, bias, r,
                                                      relu=relu)
@@ -492,108 +489,115 @@ def kernel_phase(fused_mod, fold, serve, serve32, cfg, dev, card):
             if dtype == torch.float32:  # true f32: within F64_REL of float64
                 ref = conv_f64(x, w, scale, bias, r, relu)
                 e_k, e_p = rel_err(got, ref), rel_err(want, ref)
-                e_c = rel_err(cuda_core(fused_mod, x, w, scale, bias, r, relu), ref)
                 if e_k > F64_REL:
-                    raise AssertionError(f"{counter} kernel {C}->{Co} @{H}x{W}: "
+                    raise AssertionError(f"{what} {C}->{Co} @{H}x{W}: "
                                          f"{e_k:.3e} of the max from float64 "
                                          f"(limit {F64_REL})")
                 f64 = (f"; vs float64 {e_k:.3e} of the max (limit {F64_REL}; "
-                       f"plain f32 {e_p:.3e}, cuda-core kernel {e_c:.3e})")
-            print(f"[kernels] {counter}: {C}->{Co} @{H}x{W} {str(dtype)[6:]} "
+                       f"plain f32 {e_p:.3e})")
+            print(f"[kernels] {what}: {C}->{Co} @{H}x{W} {str(dtype)[6:]} "
                   f"residual={res} relu={relu}: max abs err {abs_err:.3e}, "
                   f"rel {rel:.3e}{f64} ok", flush=True)
-        ran = {"tensor_core": fused_mod.launches_tensor_core,
-               "f32_tensor_core": fused_mod.launches_f32_tensor_core,
-               "cuda_core": fused_mod.launches_cuda_core}
-        if ran[counter] != len(cases) or sum(ran.values()) != len(cases):
-            raise AssertionError(f"{len(cases)} cases meant for the {counter} "
-                                 f"kernel launched {ran}")
+        counts = launch_counts(fused_mod)
+        want = {k: 0 for k in counts}
+        want["v2"] = want[KERNEL_OF[dtype]] = len(cases)
+        if counts != want:
+            raise AssertionError(f"{len(cases)} {what} cases launched {counts}, "
+                                 f"not {want}")
         return worst
 
     variants = ((True, True), (False, True), (True, False))
-    tc_worst = check_cases(
-        [(s, torch.bfloat16, res, relu) for s in shapes for res, relu in variants]
-        + [((32, 48, 37, 53), torch.bfloat16, True, True)],   # ragged H, W
-        "tensor_core")
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        worst[dtype] = check_cases(
+            [(s, res, relu) for s in shapes for res, relu in variants]
+            + [((32, 48, 37, 53), True, True)],   # ragged H, W
+            dtype, f"{KERNEL_OF[dtype]} flagship shapes")
     f32_worst = check_cases(
-        [(s, torch.float32, res, relu) for s in shapes32 for res, relu in variants]
+        [(s, res, relu) for s in shapes32 for res, relu in variants]
         # ragged H, W (tiles cut at the edges) at each channel tile: wgmma
         # at 64 and 32 (16x16-pixel tiles), mma.sync at 16 and 8 (8x32)
-        + [((C, C, 37, 53), torch.float32, True, True) for C in (64, 32, 16, 8)]
-        + [((32, 48, 37, 53), torch.float32, True, True),     # Co = 3 x 16
-           ((24, 40, 37, 53), torch.float32, False, True)],   # Co = 5 x 8
-        "f32_tensor_core")
-    check_cases([((20, 36, 37, 53), torch.float32, True, True),    # ragged C
-                 ((24, 40, 37, 53), torch.bfloat16, True, True)],  # ragged C
-                "cuda_core")
+        + [((C, C, 37, 53), True, True) for C in (64, 32, 16, 8)]
+        + [((32, 48, 37, 53), True, True),     # Co = 3 x 16
+           ((24, 40, 37, 53), False, True)],   # Co = 5 x 8
+        torch.float32, "f32_tensor_core flagship shapes")
+    # the channel tails with residual and ReLU, and the first two without
+    tails = ([((C, Co, 37, 53), True, True) for C, Co in RAGGED_CASES]
+             + [((C, Co, 37, 53), False, False) for C, Co in RAGGED_CASES[:2]])
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        err = check_cases(tails, dtype, f"{KERNEL_OF[dtype]} channel tails")
+        if dtype == torch.float32:
+            f32_worst = max(f32_worst, err)
+        else:
+            worst[dtype] = max(worst[dtype], err)
 
     # at the main path's batch, per (shape, residual) as the forward calls
     # it; summed over one forward's calls
     B = cfg.data.batch_size
-    rows = []
-    for (C, Co, H, W, res), n in sorted(calls.items(), key=lambda kv: -kv[0][2]):
-        x, w, scale, bias, r = operands(B, H, W, C, Co, torch.bfloat16, res)
-        t_k = time_ms(lambda: fused_mod.fused_conv3x3_bn_relu_v2(
-            x, w, scale, bias, r), inner=10)
-        t_1 = time_ms(lambda: cuda_core(fused_mod, x, w, scale, bias, r),
-                      inner=10)
-        t_p = time_ms(lambda: fused_mod.fused_conv3x3_bn_relu_v2_reference(
-            x, w, scale, bias, r), inner=10)
-        t_c = time_ms(lambda: cudnn_composition(x, w, bias, r), inner=10)
-        abs_err, _ = check_close(  # also at the main path's exact shape
-            fused_mod.fused_conv3x3_bn_relu_v2(x, w, scale, bias, r),
-            fused_mod.fused_conv3x3_bn_relu_v2_reference(x, w, scale, bias, r),
-            torch.bfloat16)
-        tc_worst = max(tc_worst, abs_err)
-        t_b, by = bound(B, H, W, C, Co, res, torch.bfloat16)
-        nbytes = 2 * B * H * W * (C + Co * (2 if res else 1))
-        flop = 18 * C * Co * H * W * B
-        print(f"[kernels] B={B} {C}->{Co} @{H}x{W} residual={res} x{n}: max "
-              f"abs err {abs_err:.3e} ok; tensor-core kernel {t_k:.4f} ms "
-              f"({flop / t_k / 1e9:.1f} TFLOP/s, {nbytes / t_k / 1e6:.0f} "
-              f"GB/s), bound {t_b:.4f} ms ({by}; {t_b / t_k:.3f} of it), "
-              f"cuda-core kernel {t_1:.4f} ms, plain(f32) {t_p:.4f} ms, cudnn bf16 "
-              f"{t_c:.4f} ms | {card}", flush=True)
-        rows.append((n, t_k, t_1, t_p, t_c, t_b, by))
-    total = [sum(row[0] * row[i] for row in rows) for i in range(1, 6)]
-    by_bytes = sum(row[0] * row[5] for row in rows if row[6] == "bytes")
-    print(f"[kernels] per forward ({sum(calls.values())} calls): tensor-core "
-          f"kernel {total[0]:.3f} ms, bound {total[4]:.3f} ms ({by_bytes:.3f} "
-          f"of it bytes-bound), cuda-core kernel {total[1]:.3f} ms, plain(f32) "
-          f"{total[2]:.3f} ms, cudnn bf16 composition {total[3]:.3f} ms | "
-          f"{card}", flush=True)
-    return {"max_abs_err": tc_worst, "ms": total[0], "plain_ms": total[2],
-            "bound_ms": total[4],
-            "bound_by": bound_by([(row[0], row[5], row[6]) for row in rows]),
-            "library_ms": total[3]}, f32_worst
+    recs = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        name = str(dtype)[6:]
+        rows = []
+        for (C, Co, H, W, res), n in sorted(calls.items(), key=lambda kv: -kv[0][2]):
+            x, w, scale, bias, r = operands(B, H, W, C, Co, dtype, res)
+            t_k = time_ms(lambda: fused_mod.fused_conv3x3_bn_relu_v2(
+                x, w, scale, bias, r), inner=10)
+            t_p = time_ms(lambda: fused_mod.fused_conv3x3_bn_relu_v2_reference(
+                x, w, scale, bias, r), reps=3, inner=5)
+            t_c = time_ms(lambda: cudnn_composition(x, w, bias, r), inner=10)
+            abs_err, _ = check_close(  # also at the main path's exact shape
+                fused_mod.fused_conv3x3_bn_relu_v2(x, w, scale, bias, r),
+                fused_mod.fused_conv3x3_bn_relu_v2_reference(x, w, scale, bias, r),
+                dtype)
+            worst[dtype] = max(worst[dtype], abs_err)
+            t_b, by = bound(B, H, W, C, Co, res, dtype)
+            nbytes = 2 * B * H * W * (C + Co * (2 if res else 1))
+            flop = 18 * C * Co * H * W * B
+            print(f"[kernels] {name} B={B} {C}->{Co} @{H}x{W} residual={res} x{n}: "
+                  f"max abs err {abs_err:.3e} ok; tensor-core kernel {t_k:.4f} ms "
+                  f"({flop / t_k / 1e9:.1f} TFLOP/s, {nbytes / t_k / 1e6:.0f} "
+                  f"GB/s), bound {t_b:.4f} ms ({by}; {t_b / t_k:.3f} of it), "
+                  f"plain(f32) {t_p:.4f} ms, cudnn {name} {t_c:.4f} ms | {card}",
+                  flush=True)
+            rows.append((n, t_k, t_p, t_c, t_b, by))
+        total = [sum(row[0] * row[i] for row in rows) for i in range(1, 5)]
+        by_bytes = sum(row[0] * row[4] for row in rows if row[5] == "bytes")
+        print(f"[kernels] {name} per forward ({sum(calls.values())} calls): "
+              f"tensor-core kernel {total[0]:.3f} ms, bound {total[3]:.3f} ms "
+              f"({by_bytes:.3f} of it bytes-bound; {total[3] / total[0]:.3f} of "
+              f"it), plain(f32) {total[1]:.3f} ms, cudnn {name} composition "
+              f"{total[2]:.3f} ms | {card}", flush=True)
+        recs[dtype] = {"max_abs_err": worst[dtype], "ms": total[0],
+                       "plain_ms": total[1], "bound_ms": total[3],
+                       "bound_by": bound_by([(row[0], row[4], row[5]) for row in rows]),
+                       "library_ms": total[2]}
+    return recs[torch.bfloat16], recs[torch.float16], f32_worst
 
 
 def f32_phase(fused_mod, fold, serve32, cfg, dev, card, worst):
     """The f32 tensor-core kernel at the shapes of the f32 forward (the
     flagship with compute_dtype float32), batch 32, per (shape, residual)
     as the forward calls it: checked against the plain version and timed
-    beside the CUDA-core kernel on the same operands (its C entry), the
-    plain version and the cuDNN f32 composition (TF32 off), with both
-    bounds: the CUDA cores' f32 and the tensor cores' 3xTF32. Summed over
-    one forward's calls. Returns the kernel's record (its bound: the 3xTF32
-    one, the smaller)."""
+    beside the plain version and the cuDNN f32 composition (TF32 off), with
+    both bounds: the CUDA cores' f32 and the tensor cores' 3xTF32. Summed
+    over one forward's calls. Returns the kernel's record (its bound: the
+    3xTF32 one, the smaller)."""
     calls = forward_calls(fold, serve32, cfg, dev)
     operands = operand_maker(dev, SEED + 4)
     B = cfg.data.batch_size
-    names = ("f32 tensor-core kernel", "cuda-core kernel", "plain(f32)",
-             "cudnn f32 composition", "3xTF32 bound", "CUDA-core f32 bound")
+    names = ("f32 tensor-core kernel", "plain(f32)", "cudnn f32 composition",
+             "3xTF32 bound", "CUDA-core f32 bound")
     total, parts = [0.0] * len(names), []
     for (C, Co, H, W, res), n in sorted(calls.items(), key=lambda kv: -kv[0][2]):
         x, w, scale, bias, r = operands(B, H, W, C, Co, torch.float32, res)
         fns = (lambda: fused_mod.fused_conv3x3_bn_relu_v2(x, w, scale, bias, r),
-               lambda: cuda_core(fused_mod, x, w, scale, bias, r),
                lambda: fused_mod.fused_conv3x3_bn_relu_v2_reference(
                    x, w, scale, bias, r),
                lambda: cudnn_composition(x, w, bias, r))
-        worst = max(worst, check_close(fns[0](), fns[2](), torch.float32)[0])
+        worst = max(worst, check_close(fns[0](), fns[1](), torch.float32)[0])
         t = [time_ms(fn, reps=3, warmup=1, inner=5) for fn in fns]
         t_b3, by = bound(B, H, W, C, Co, res, torch.float32, tf32x3=True)
-        t_b1, by1 = bound(B, H, W, C, Co, res, torch.float32)
+        t_b1, _ = bound(B, H, W, C, Co, res, torch.float32)
         t += [t_b3, t_b1]
         parts.append((n, t_b3, by))
         flop = 18 * C * Co * H * W * B
@@ -601,36 +605,41 @@ def f32_phase(fused_mod, fold, serve32, cfg, dev, card, worst):
         print(f"[kernels] f32 B={B} {C}->{Co} @{H}x{W} residual={res} x{n}: "
               f"ok; f32 tensor-core kernel {t[0]:.4f} ms ({flop / t[0] / 1e9:.1f} "
               f"f32 TFLOP/s, {nbytes / t[0] / 1e6:.0f} GB/s; {t_b3 / t[0]:.3f} of "
-              f"the 3xTF32 bound {t_b3:.4f} ms, {by}), cuda-core kernel "
-              f"{t[1]:.4f} ms ({t_b1 / t[1]:.3f} of its f32 bound {t_b1:.4f} ms, "
-              f"{by1}), plain(f32) {t[2]:.4f} ms, cudnn f32 {t[3]:.4f} ms | {card}",
-              flush=True)
+              f"the 3xTF32 bound {t_b3:.4f} ms, {by}), CUDA-core f32 bound "
+              f"{t_b1:.4f} ms, plain(f32) {t[1]:.4f} ms, cudnn f32 {t[2]:.4f} ms "
+              f"| {card}", flush=True)
         for i, v in enumerate(t):
             total[i] += n * v
     print(f"[kernels] f32 per forward ({sum(calls.values())} calls): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in zip(names, total))
-          + f"; the f32 tensor-core kernel at {total[4] / total[0]:.3f} of the "
-          f"3xTF32 bound, the cuda-core kernel at {total[5] / total[1]:.3f} of "
-          f"the f32 bound | {card}", flush=True)
-    return {"max_abs_err": worst, "ms": total[0], "plain_ms": total[2],
-            "bound_ms": total[4], "bound_by": bound_by(parts),
-            "library_ms": total[3]}
+          + f"; the f32 tensor-core kernel at {total[3] / total[0]:.3f} of the "
+          f"3xTF32 bound | {card}", flush=True)
+    return {"max_abs_err": worst, "ms": total[0], "plain_ms": total[1],
+            "bound_ms": total[3], "bound_by": bound_by(parts),
+            "library_ms": total[2]}
 
 
 def ragged_phase(fused_mod, cfg, dev, card):
-    """The CUDA-core kernel's own path, ragged channel counts through the
-    op at batch 32, 256^2 (no model config has them: the forward sends only
+    """The channel-tail route, ragged channel counts through the op at
+    batch 32, 256^2 (no model config has them: the forward sends only
     multiples of 16 to the op): one launch each with the counts from 0 --
-    its run -- then held against the plain version and timed. Returns its
-    record, summed over the two calls."""
+    its run, on the tensor-core kernels' counters -- then held against the
+    plain version and timed beside the cuDNN composition and the tensor
+    cores' bound (f32: 3xTF32). Returns its record, summed over the two
+    calls."""
     operands = operand_maker(dev, SEED + 2)
     B, cases = cfg.data.batch_size, ((24, 40, 256, 256, True, torch.bfloat16),
                                      (20, 36, 256, 256, False, torch.float32))
     ops = [operands(B, H, W, C, Co, dt, res) for C, Co, H, W, res, dt in cases]
     outs, counts, _ = counted(fused_mod, lambda: [
         fused_mod.fused_conv3x3_bn_relu_v2(*o) for o in ops])
-    expect_launches(counts, 1, "cuda_core", per_batch=len(cases))
-    rec = {"launches": counts["cuda_core"], "max_abs_err": 0.0, "ms": 0.0,
+    want = {k: 0 for k in counts}
+    want["v2"] = len(cases)
+    for *_, dt in cases:
+        want[KERNEL_OF[dt]] += 1
+    if counts != want:
+        raise AssertionError(f"channel-tail run launched {counts}, not {want}")
+    rec = {"launches": counts["v2"], "max_abs_err": 0.0, "ms": 0.0,
            "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     parts = []
     for (C, Co, H, W, res, dt), o, got in zip(cases, ops, outs):
@@ -642,17 +651,21 @@ def ragged_phase(fused_mod, cfg, dev, card):
                       reps=3, warmup=1, inner=5)
         t_c = time_ms(lambda: cudnn_composition(o[0], o[1], o[3], o[4]),
                       reps=3, warmup=1, inner=5)
-        t_b, by = bound(B, H, W, C, Co, res, dt)
+        t_b, by = bound(B, H, W, C, Co, res, dt, tf32x3=dt == torch.float32)
         parts.append((1, t_b, by))
         rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
         for k, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_c),
                      ("bound_ms", t_b)):
             rec[k] += t
         print(f"[kernels] ragged B={B} {C}->{Co} @{H}x{W} {str(dt)[6:]} "
-              f"residual={res}: cuda-core kernel, launches {counts}; max abs "
-              f"err {abs_err:.3e} ok; kernel {t_k:.4f} ms, bound {t_b:.4f} ms "
-              f"({by}), plain(f32) {t_p:.4f} ms, cudnn {t_c:.4f} ms | {card}",
-              flush=True)
+              f"residual={res}: {KERNEL_OF[dt]} kernel; max abs err "
+              f"{abs_err:.3e} ok; kernel {t_k:.4f} ms, bound {t_b:.4f} ms "
+              f"({by}; {t_b / t_k:.3f} of it), plain(f32) {t_p:.4f} ms, cudnn "
+              f"{t_c:.4f} ms | {card}", flush=True)
+    print(f"[kernels] ragged pair: kernels {rec['ms']:.4f} ms, cudnn "
+          f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_ms'] / rec['ms']:.3f} of it), launches {counts} | "
+          f"{card}", flush=True)
     rec["bound_by"] = bound_by(parts)
     return rec
 
@@ -805,28 +818,31 @@ def check_export(path, stats, n_events, num_class):
     return z
 
 
+def launch_counts(fused_mod):
+    """{'v2': the v2 entry point's launches, kernel: its launches}."""
+    return {"v2": fused_mod.launches,
+            **{k: getattr(fused_mod, f"launches_{k}") for k in KERNEL_OF.values()}}
+
+
 def counted(fused_mod, fn):
     """``fn()`` with every launch counter set to 0 just before and read just
     after. Returns (its result, the counts, wall s)."""
     fused_mod.launches = fused_mod.launches_v1 = 0
-    fused_mod.launches_tensor_core = fused_mod.launches_cuda_core = 0
-    fused_mod.launches_f32_tensor_core = 0
+    for k in KERNEL_OF.values():
+        setattr(fused_mod, f"launches_{k}", 0)
     t0 = time.time()
     result = fn()
     torch.cuda.synchronize()
     wall = time.time() - t0
-    return result, {"v2": fused_mod.launches,
-                    "tensor_core": fused_mod.launches_tensor_core,
-                    "f32_tensor_core": fused_mod.launches_f32_tensor_core,
-                    "cuda_core": fused_mod.launches_cuda_core}, wall
+    return result, launch_counts(fused_mod), wall
 
 
 def expect_launches(counts, n_batches, kernel="tensor_core", per_batch=44):
     """The entry point ``launches`` and the kernel named by ``kernel``
-    ('tensor_core', 'f32_tensor_core' or 'cuda_core') counted
+    ('tensor_core', 'f16_tensor_core' or 'f32_tensor_core') counted
     ``per_batch`` per batch, the other kernels none."""
     n = per_batch * n_batches
-    want = {"v2": n, "tensor_core": 0, "f32_tensor_core": 0, "cuda_core": 0}
+    want = {"v2": n, **{k: 0 for k in KERNEL_OF.values()}}
     want[kernel] = n
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != {want}")
@@ -1170,7 +1186,7 @@ def ana_phase(cfg_path, cfg, ckpt, events, fused_mod, card, dev):
           f"column (scores and pred included); usef writeback "
           f"holds the npz scores at all {hits} pixels; kernel launches "
           f"{ {m: c['tensor_core'] for m, c in cnt.items()} } (= 44 per batch, "
-          f"no CUDA-core launch)", flush=True)
+          f"no other kernel's launch)", flush=True)
 
     # 8b. the exactly-once gate on the same file: the sparse pass's counts
     m, counts, _ = counted(fused_mod, lambda: run_cli(
@@ -2774,7 +2790,8 @@ def packed_check(cfg_path, card, dev):
     in some leaves (PERF.md). A control then plants a backward
     fault confined to one small leaf (`stem_grad_fault`) and requires the
     same check to flag that leaf; it prints what the fault reads there and
-    over all leaves together."""
+    over all leaves together. The float64 check feeds f32 logits to the
+    loss: the forward casts its logits to f32, as the JAX forward does."""
     from uresnet_tpu_torch import load_config
     from uresnet_tpu_torch.engine.losses import weighted_softmax_xent
     from uresnet_tpu_torch.models.uresnet import UResNet
@@ -3111,11 +3128,11 @@ def main():
     serve32 = build_serving_fn(cfg32, model)
 
     # 3. the kernels vs plain (f32 also vs float64); times at the main
-    # paths' shapes; the CUDA-core kernel's ragged-channel run; v1
-    tc_rec, f32_worst = kernel_phase(fused_mod, fold, serve, serve32, cfg, dev,
-                                     card)
+    # paths' shapes; the channel-tail route's run; v1
+    tc_rec, f16_rec, f32_worst = kernel_phase(fused_mod, fold, serve, serve32,
+                                              cfg, dev, card)
     f32_rec = f32_phase(fused_mod, fold, serve32, cfg, dev, card, f32_worst)
-    cc_rec = ragged_phase(fused_mod, cfg, dev, card)
+    tail_rec = ragged_phase(fused_mod, cfg, dev, card)
     v1_rec = v1_phase(fused_mod, cfg, dev)
     if KERNELS_ONLY:
         return
@@ -3149,6 +3166,19 @@ def main():
           f"wall; vs the bf16 kernel path: max softmax diff {d:.3e}, argmax "
           f"agreement {agree:.5f}", flush=True)
 
+    # 4c. the f16 serving path (the f16 tensor-core kernel), held to the
+    # bf16 one
+    z16, _, counts, wall = serve_counted(
+        fused_mod, infer, argv + ["model.compute_dtype=float16"],
+        os.path.join(WORK, "scores_f16.npz"), N_EVENTS, cfg.model.num_class,
+        "f16_tensor_core", batch_events=batch_events)
+    f16_rec["launches"] = counts["f16_tensor_core"]
+    d, agree = agreement(z16, z, "f16 vs bf16 kernel path")
+    print(f"[serve16] {N_EVENTS} events at compute_dtype float16: kernel "
+          f"launches {counts} (= 44 per batch, f16 tensor-core kernel), {wall:.2f} s "
+          f"wall; vs the bf16 kernel path: max softmax diff {d:.3e}, argmax "
+          f"agreement {agree:.5f}", flush=True)
+
     # 5. whole forward: kernel vs plain (cuDNN) path
     zx, _, _, _ = serve_counted(
         fused_mod, infer, argv + ["model.kernel_backend=xla"],
@@ -3173,29 +3203,24 @@ def main():
           f"kernel-path forward {k_ms / t_auto:.3f} (kernel {k_ms:.2f} ms, "
           f"its cudnn bf16 composition {tc_rec['library_ms']:.2f} ms, plain "
           f"f32 {tc_rec['plain_ms']:.2f} ms per forward) | {card}", flush=True)
-    # the f32 forward: on the f32 tensor-core kernel; on the CUDA-core
-    # kernel (the routing before it, `kernel_for` patched for these timings
-    # alone), in turns; and the cuDNN true-f32 path
+    # the f16 forward on its kernel; the f32 forward on the f32 tensor-core
+    # kernel and on the cuDNN true-f32 path
+    serve16 = build_serving_fn(dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="float16")), model)
+    t16 = time_ms(lambda: serve16(x), reps=7)
+    print(f"[forward] B={B} {S}^2 f16 forward+softmax: kernel path "
+          f"{t16:.2f} ms = {B / t16 * 1e3:.1f} img/s (bf16 {t_auto:.2f} ms); "
+          f"f16 kernel {f16_rec['ms']:.2f} ms per forward (bf16 {k_ms:.2f}) | "
+          f"{card}", flush=True)
     serve32_xla = build_serving_fn(dataclasses.replace(cfg32, model=dataclasses.replace(
         cfg32.model, kernel_backend="xla")), model)
-    routed = fused_mod.kernel_for
-    t32 = {"f32 tensor-core": [], "cuda-core": []}
-    for k in ("f32 tensor-core", "cuda-core", "cuda-core", "f32 tensor-core"):
-        if k == "cuda-core":
-            fused_mod.kernel_for = lambda dtype, C, Co: "cuda_core"
-        try:
-            t32[k].append(time_ms(lambda: serve32(x), reps=5))
-        finally:
-            fused_mod.kernel_for = routed
+    t32 = time_ms(lambda: serve32(x), reps=5)
     t32_xla = time_ms(lambda: serve32_xla(x), reps=5)
     print(f"[forward] B={B} {S}^2 f32 forward+softmax: f32 tensor-core kernel "
-          f"path {t32['f32 tensor-core']} ms = "
-          f"{[round(B / v * 1e3, 1) for v in t32['f32 tensor-core']]} img/s; "
-          f"on the cuda-core kernel {t32['cuda-core']} ms = "
-          f"{[round(B / v * 1e3, 1) for v in t32['cuda-core']]} img/s; cudnn "
-          f"true-f32 path {t32_xla:.2f} ms = {B / t32_xla * 1e3:.1f} img/s; the "
-          f"bf16 kernel path {B / t_auto * 1e3:.1f} img/s; f32 kernel "
-          f"{f32_rec['ms']:.2f} ms per forward | {card}", flush=True)
+          f"path {t32:.2f} ms = {B / t32 * 1e3:.1f} img/s; cudnn true-f32 path "
+          f"{t32_xla:.2f} ms = {B / t32_xla * 1e3:.1f} img/s; the bf16 kernel "
+          f"path {B / t_auto * 1e3:.1f} img/s; f32 kernel {f32_rec['ms']:.2f} ms "
+          f"per forward | {card}", flush=True)
 
     # 6. where the forward's time goes
     profile_forwards({"kernel path": serve, "cudnn path": serve_xla,
@@ -3232,14 +3257,18 @@ def main():
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
     src = "uresnet_tpu_torch/csrc/conv2d.cu"
+    src32 = "uresnet_tpu_torch/csrc/conv2d_f32tc.cu"
     kernels = [
         dict(name="fused_conv3x3_bn_relu_v2 (tensor-core kernel, bf16)",
              replaces="uresnet_tpu/ops/pallas/conv2d.py:130", source=src, **tc_rec),
+        dict(name="fused_conv3x3_bn_relu_v2 (tensor-core kernel, f16)",
+             replaces="uresnet_tpu/ops/pallas/conv2d.py:130", source=src, **f16_rec),
         dict(name="fused_conv3x3_bn_relu_v2 (f32 tensor-core kernel, 3xTF32)",
+             replaces="uresnet_tpu/ops/pallas/conv2d.py:130", source=src32, **f32_rec),
+        dict(name="fused_conv3x3_bn_relu_v2 (tensor-core kernels' channel tails: "
+                  "bf16 24->40, f32 20->36)",
              replaces="uresnet_tpu/ops/pallas/conv2d.py:130",
-             source="uresnet_tpu_torch/csrc/conv2d_f32tc.cu", **f32_rec),
-        dict(name="fused_conv3x3_bn_relu_v2 (CUDA-core kernel, ragged channels)",
-             replaces="uresnet_tpu/ops/pallas/conv2d.py:130", source=src, **cc_rec),
+             source=f"{src}, {src32}", **tail_rec),
         dict(name="fused_conv3x3_bn_relu",
              replaces="uresnet_tpu/ops/pallas/conv2d.py:182", source=src, **v1_rec)]
     print(json.dumps({"kernels": [

@@ -471,7 +471,7 @@ def test_exports_3d_equal_and_match_jax(A):
     USEF writeback."""
     tr, ts = _port(A)
     before = (tfused.launches, tfused.launches_tensor_core,
-              tfused.launches_cuda_core)
+              tfused.launches_f16_tensor_core)
     out, stats = {}, {}
     for mode, kw in (("sparse", dict(streamed=True, export="sparse")),
                      ("dense", dict(streamed=True, export="dense")),
@@ -479,7 +479,7 @@ def test_exports_3d_equal_and_match_jax(A):
         out[mode] = str(A["tmp"] / f"port_{mode}.npz")
         stats[mode] = tevl.run_inference(tr, ts, A["main"], out[mode], **kw)
     assert (tfused.launches, tfused.launches_tensor_core,
-            tfused.launches_cuda_core) == before
+            tfused.launches_f16_tensor_core) == before
     z = {m: np.load(p) for m, p in out.items()}
     assert z["sparse"]["coords"].shape[1] == 3 and len(z["sparse"]["scores"]) > 0
     for m in ("dense", "host"):

@@ -309,7 +309,7 @@ def test_folded_forward_matches_jax(pair, monkeypatch):
     monkeypatch.setattr(fold, "fused_conv3x3_bn_relu_v2",
                         lambda *a, **kw: calls.append(a))
     before = (tfused.launches, tfused.launches_tensor_core,
-              tfused.launches_cuda_core)
+              tfused.launches_f16_tensor_core)
     for backend in ("auto", "pallas", "xla"):
         cfg = dataclasses.replace(CFG, kernel_backend=backend)
         with torch.no_grad():
@@ -320,7 +320,7 @@ def test_folded_forward_matches_jax(pair, monkeypatch):
                                    atol=TOL * np.abs(np.asarray(want)).max())
     assert calls == []
     assert (tfused.launches, tfused.launches_tensor_core,
-            tfused.launches_cuda_core) == before
+            tfused.launches_f16_tensor_core) == before
 
 
 # -- the f32 head over a bf16 model ------------------------------------------------

@@ -227,7 +227,8 @@ def test_cli_exports_from_real_checkpoint(tmp_path, capsys):
 # -- the fused conv op ---------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("residual", [True, False])
 @pytest.mark.parametrize("op", ["v2", "v1"])
 def test_opcheck(dtype, residual, op):

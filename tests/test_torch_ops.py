@@ -380,33 +380,41 @@ def test_canonical_dtype():
     (torch.bfloat16, 512, 256, "tensor_core"),    # 32^2 level
     (torch.bfloat16, 32, 48, "tensor_core"),      # Co not a power of two
     (torch.float32, 64, 64, "f32_tensor_core"),   # f32: 3xTF32 tensor cores
-    (torch.bfloat16, 24, 40, "cuda_core"),        # C not a multiple of 16
-    (torch.bfloat16, 16, 8, "cuda_core"),         # Co not a multiple of 16
+    (torch.bfloat16, 24, 40, "tensor_core"),      # C not a multiple of 16: channel tails
+    (torch.bfloat16, 16, 8, "tensor_core"),       # Co not a multiple of 16: channel tails
     (torch.float32, 16, 16, "f32_tensor_core"),   # the f32 forward's 512^2 level
     (torch.float32, 512, 512, "f32_tensor_core"),  # ... and its 16^2 level
     (torch.float32, 8, 8, "f32_tensor_core"),     # the TF32 MMA's depth
     (torch.float32, 24, 40, "f32_tensor_core"),   # multiples of 8, not of 16
-    (torch.float32, 20, 36, "cuda_core"),         # f32, C and Co ragged
-    (torch.float32, 12, 16, "cuda_core"),         # f32, C not a multiple of 8
-    (torch.float32, 16, 4, "cuda_core"),          # f32, Co not a multiple of 8
+    (torch.float32, 20, 36, "f32_tensor_core"),   # f32, C and Co ragged: channel tails
+    (torch.float32, 12, 16, "f32_tensor_core"),   # f32, C not a multiple of 8
+    (torch.float32, 16, 4, "f32_tensor_core"),    # f32, Co not a multiple of 8
+    (torch.float16, 16, 16, "f16_tensor_core"),   # f16: the f16 MMA
+    (torch.float16, 512, 256, "f16_tensor_core"),
+    (torch.float16, 1, 16, "f16_tensor_core"),    # f16 stem width: rows of 2 bytes
+    (torch.float16, 24, 40, "f16_tensor_core"),   # f16 channel tails
+    (torch.float16, 16, 8, "f16_tensor_core"),
 ])
 def test_kernel_choice_by_dtype_and_shape(dtype, C, Co, kernel):
-    """Which kernel a CUDA call runs depends on dtype and shape alone."""
+    """Which kernel a CUDA call runs depends on the dtype alone: every C
+    and Co goes to the dtype's tensor-core kernel."""
     assert tfused.kernel_for(dtype, C, Co) == kernel
     assert hasattr(tfused, f"launches_{kernel}")
 
 
 def test_cpu_calls_count_no_kernel(rng):
     """CPU tensors run the plain version and leave every launch count
-    alone, bf16 and f32 alike."""
+    alone, bf16, f16 and f32 alike."""
     def counts():
         return (tfused.launches, tfused.launches_v1, tfused.launches_tensor_core,
-                tfused.launches_f32_tensor_core, tfused.launches_cuda_core)
+                tfused.launches_f16_tensor_core, tfused.launches_f32_tensor_core)
 
     before = counts()
-    # the shapes a CUDA call sends to each of the three kernels
-    for dtype, C in ((torch.bfloat16, 16), (torch.float32, 16),
-                     (torch.float32, 12)):
+    # operands a CUDA call sends to each of the three kernels, aligned and
+    # with channel tails
+    for dtype, C in ((torch.bfloat16, 16), (torch.float16, 16),
+                     (torch.float32, 16), (torch.float32, 12),
+                     (torch.float16, 3)):
         x = T(rng.standard_normal((1, 6, 5, C)).astype(np.float32)).to(dtype)
         w = T(rng.standard_normal((3, 3, C, 32)).astype(np.float32)).to(dtype)
         s, b = torch.ones(32), torch.zeros(32)

@@ -6,8 +6,8 @@
 // Replaces, for f32 operands, the Pallas kernel fused_conv3x3_bn_relu_v2
 // (uresnet_tpu/ops/pallas/conv2d.py:130; v1 at :182 computes the same
 // function and is bound to the same entry). Contract: x (B,H,W,C),
-// w (3,3,C,Co), residual (B,H,W,Co), scale and bias (Co,), all f32, C and
-// Co multiples of 8, every pointer 16-byte aligned; f32 accumulation, the
+// w (3,3,C,Co), residual (B,H,W,Co), scale and bias (Co,), all f32, any
+// C >= 1 and Co >= 1, every pointer 16-byte aligned; f32 accumulation, the
 // epilogue in f32, one f32 store.
 //
 // Accuracy. A TF32 operand keeps 11 significant bits, so one TF32 product
@@ -76,6 +76,18 @@
 //    * Epilogue: scale, bias, residual and ReLU in f32 on the accumulator
 //      fragments into a shared output tile (rows padded so the fragment
 //      stores are conflict-free), then 16-byte coalesced f32 stores.
+//    * Channel tails (C or Co not a multiple of 8): the RAGGED form, a
+//      compile-time flag, so the aligned instantiations keep their code;
+//      16- or 48-channel tiles (below). ceil(C/8) chunks, the last one's halo channels
+//      >= C and weight rows >= C zero-filled -- both operands, since a
+//      stale value left in a ring slot can be inf or NaN and 0 * inf is
+//      NaN; ceil(Co/16) channel tiles, weight columns, scale, bias and
+//      residual channels >= Co read as zero and stores >= Co masked. A
+//      zero splits into zero hi and lo, so the accuracy argument above
+//      holds unchanged. Rows that start on a 16-byte boundary (C or Co a
+//      multiple of 4) load by 16-byte cp.async, zero-filled past the end;
+//      others by 4-byte cp.async.ca (f32 is 4-byte aligned at any C), so
+//      they stay in the ring's pipeline.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -97,6 +109,21 @@ constexpr int pitch_words(int n) { return n % 16 == 8 ? n : n + 8; }
 // consecutive pixels read at one unit fall in 8 distinct 16-byte bank groups.
 __device__ __forceinline__ int x_off(int q, int u) { return (q * 2 + (u ^ ((q >> 2) & 1))) * 16; }
 
+// One 16-byte unit of a row, elements [0, n) from `src`, zero from n on,
+// into shared memory at `dst`. `vec`: the row starts on a 16-byte
+// boundary, so the unit is whole (n >= 4) or past the end (n <= 0): one
+// 16-byte cp.async. Else four 4-byte ones. A copy past the end reads
+// nothing (src-size 0) from `any`, a valid address.
+__device__ __forceinline__ void stage_unit(uint32_t dst, const float* src, const float* any,
+                                           int n, bool vec) {
+    if (vec) {
+        ptx::cp_async16(dst, n > 0 ? src : any, n > 0);
+        return;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ptx::cp_async4(dst + 4 * e, e < n ? src + e : any, e < n);
+}
+
 template <int TH, int TW, int CO_T, int STAGES>
 struct Shape {
     static constexpr int M = TH * TW;  // pixels per tile
@@ -117,8 +144,10 @@ struct Shape {
 };
 
 // One tile = TH x TW output pixels x CO_T channels of one image; a block
-// walks tiles blockIdx.x, blockIdx.x + gridDim.x, ...
-template <int TH, int TW, int CO_T, int WM, int WN, int STAGES, int MINB>
+// walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... RAGGED: any C and Co
+// (the channel tails above); without it C and Co are multiples of 8 and of
+// CO_T.
+template <int TH, int TW, int CO_T, int WM, int WN, int STAGES, int MINB, bool RAGGED>
 __global__ void __launch_bounds__(WM * WN * 32, MINB)
 conv3x3_f32tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const float* __restrict__ scale, const float* __restrict__ bias,
@@ -139,6 +168,9 @@ conv3x3_f32tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
     const int wm = warp % WM, wn = warp / WM;
+    // RAGGED: whether x's and the Co-wide rows (w, residual, out) start on
+    // 16-byte boundaries
+    const bool x_vec = C % 4 == 0, o_vec = Co % 4 == 0;
 
     struct Tile {
         int h0, w0, co0, b;
@@ -149,7 +181,7 @@ conv3x3_f32tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
         return Tile{(sp / tiles_w) * TH, (sp % tiles_w) * TW, (t % n_co_tiles) * CO_T,
                     r / tiles_hw};
     };
-    const int n_chunks = C / CK;
+    const int n_chunks = RAGGED ? (C + CK - 1) / CK : C / CK;
     const int n_items = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x *
                         n_chunks;  // (tile, chunk) pairs of this block
 
@@ -166,13 +198,20 @@ conv3x3_f32tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
             const int gh = tl.h0 - 1 + q / S::HALO_W, gw = tl.w0 - 1 + q % S::HALO_W;
             const bool in = (unsigned)gh < (unsigned)H && (unsigned)gw < (unsigned)W;
             const float* src = in ? xb + ((size_t)gh * W + gw) * C + c0 + u * 4 : x;
-            ptx::cp_async16(hs + x_off(q, u), src, in);
+            if constexpr (RAGGED)
+                stage_unit(hs + x_off(q, u), src, x, in ? C - (c0 + u * 4) : 0, x_vec);
+            else
+                ptx::cp_async16(hs + x_off(q, u), src, in);
         }
         const uint32_t ws = hs + S::W_OFF;
         for (int j = tid; j < 9 * CK * PB; j += NT) {
             const int r = j / PB, u = j % PB;  // r = tap * CK + k
             const float* src = w + ((size_t)(r / CK) * C + c0 + r % CK) * Co + tl.co0 + u * 4;
-            ptx::cp_async16(ws + (r * S::WP + u * 4) * 4, src, true);
+            if constexpr (RAGGED)
+                stage_unit(ws + (r * S::WP + u * 4) * 4, src, w,
+                           c0 + r % CK < C ? Co - (tl.co0 + u * 4) : 0, o_vec);
+            else
+                ptx::cp_async16(ws + (r * S::WP + u * 4) * 4, src, true);
         }
         if (c0 == 0 && res != nullptr) {
             const uint32_t ts = sbase + S::RING + (k % STAGES) * S::TILE_BYTES;
@@ -182,7 +221,11 @@ conv3x3_f32tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const bool in = oh < H && ow < W;
                 const float* src =
                     in ? res + (((size_t)tl.b * H + oh) * W + ow) * Co + tl.co0 + u * 4 : res;
-                ptx::cp_async16(ts + m * S::TILE_PITCH + u * 16, src, in);
+                if constexpr (RAGGED)
+                    stage_unit(ts + m * S::TILE_PITCH + u * 16, src, res,
+                               in ? Co - (tl.co0 + u * 4) : 0, o_vec);
+                else
+                    ptx::cp_async16(ts + m * S::TILE_PITCH + u * 16, src, in);
             }
         }
     };
@@ -210,14 +253,22 @@ conv3x3_f32tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
     // Tile k is summed. The epilogue in f32 on the fragments: scale, bias,
     // residual, ReLU into the shared output tile; then 16-byte coalesced
-    // stores of the tile's pixels inside the image.
+    // stores of the tile's pixels inside the image (and its channels below
+    // Co).
     auto epilogue = [&](int k, unsigned char* tile) {
         const Tile tl = tile_at(k);
 #pragma unroll
         for (int ni = 0; ni < NI; ++ni) {
             const int n = wn * WARP_N + ni * 8 + 2 * t4;
-            const float2 sc = *reinterpret_cast<const float2*>(scale + tl.co0 + n);
-            const float2 bi = *reinterpret_cast<const float2*>(bias + tl.co0 + n);
+            float2 sc, bi;
+            if constexpr (RAGGED) {  // channels >= Co: zero
+                const int co = tl.co0 + n;
+                sc = make_float2(co < Co ? scale[co] : 0.f, co + 1 < Co ? scale[co + 1] : 0.f);
+                bi = make_float2(co < Co ? bias[co] : 0.f, co + 1 < Co ? bias[co + 1] : 0.f);
+            } else {
+                sc = *reinterpret_cast<const float2*>(scale + tl.co0 + n);
+                bi = *reinterpret_cast<const float2*>(bias + tl.co0 + n);
+            }
 #pragma unroll
             for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -243,10 +294,14 @@ conv3x3_f32tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
         for (int j = tid; j < S::M * PB; j += NT) {
             const int m = j / PB, u = j % PB;
             const int oh = tl.h0 + m / TW, ow = tl.w0 + m % TW;
-            if (oh < H && ow < W)
-                *reinterpret_cast<float4*>(out + (((size_t)tl.b * H + oh) * W + ow) * Co +
-                                           tl.co0 + u * 4) =
-                    *reinterpret_cast<const float4*>(tile + m * S::TILE_PITCH + u * 16);
+            if (oh >= H || ow >= W) continue;
+            float* dst = out + (((size_t)tl.b * H + oh) * W + ow) * Co + tl.co0 + u * 4;
+            const float* cell = reinterpret_cast<const float*>(tile + m * S::TILE_PITCH + u * 16);
+            const int n = Co - (tl.co0 + u * 4);  // channels of this unit below Co
+            if (!RAGGED || (o_vec && n > 0))
+                *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(cell);
+            else if (!o_vec)  // a row that is not 16-byte aligned: element by element
+                for (int e = 0; e < 4 && e < n; ++e) dst[e] = cell[e];
         }
     };
 
@@ -328,13 +383,13 @@ conv3x3_f32tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
     }
 }
 
-template <int TH, int TW, int CO_T, int WM, int WN, int STAGES, int MINB>
+template <int TH, int TW, int CO_T, int WM, int WN, int STAGES, int MINB, bool RAGGED>
 int launch_cfg(const void* x, const void* w, const void* scale, const void* bias,
                const void* res, void* out, int B, int H, int W, int C, int Co, int relu,
                cudaStream_t stream) {
     constexpr int smem = Shape<TH, TW, CO_T, STAGES>::SMEM;
     constexpr int threads = WM * WN * 32;
-    auto kernel = conv3x3_f32tc_kernel<TH, TW, CO_T, WM, WN, STAGES, MINB>;
+    auto kernel = conv3x3_f32tc_kernel<TH, TW, CO_T, WM, WN, STAGES, MINB, RAGGED>;
     // per device, once: the shared-memory opt-in and how many blocks fit on
     // the card (racing first calls store the same values)
     constexpr int MAX_DEV = 64;
@@ -356,7 +411,7 @@ int launch_cfg(const void* x, const void* w, const void* scale, const void* bias
         fit[dev] = per_sm * sms;
     }
     const int tiles_w = (W + TW - 1) / TW, tiles_hw = (H + TH - 1) / TH * tiles_w;
-    const int n_co_tiles = Co / CO_T;
+    const int n_co_tiles = (Co + CO_T - 1) / CO_T;
     const long long n_tiles = (long long)tiles_hw * n_co_tiles * B;
     if (n_tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
     const int grid = fit[dev] < n_tiles ? fit[dev] : static_cast<int>(n_tiles);
@@ -686,15 +741,24 @@ int launch(const void* x, const void* w, const void* scale, const void* bias, co
 
 // The mma.sync configurations (chosen by a sweep on an H100): persistent
 // blocks over 8x32-pixel tiles, 2 stages; 16 output channels a block with 4
-// warps, two blocks an SM; 8 with 8 warps.
+// warps, two blocks an SM; 8 with 8 warps. Channel tails: RAGGED, 16
+// channels a block up to Co = 16, else 48 with 8 warps, one block an SM:
+// at Co = 36 one tile, so x is read and each A fragment split once.
 int launch_mma_sync(const void* x, const void* w, const void* scale, const void* bias,
                     const void* res, void* out, int B, int H, int W, int C, int Co, int relu,
                     cudaStream_t s) {
+    if (C % CK != 0 || Co % 8 != 0) {
+        if (Co <= 16)
+            return launch_cfg<8, 32, 16, 4, 1, 2, 2, true>(x, w, scale, bias, res, out, B, H, W,
+                                                           C, Co, relu, s);
+        return launch_cfg<8, 32, 48, 8, 1, 2, 1, true>(x, w, scale, bias, res, out, B, H, W, C,
+                                                       Co, relu, s);
+    }
     if (Co % 16 == 0)
-        return launch_cfg<8, 32, 16, 4, 1, 2, 2>(x, w, scale, bias, res, out, B, H, W, C, Co,
-                                                 relu, s);
-    return launch_cfg<8, 32, 8, 8, 1, 2, 2>(x, w, scale, bias, res, out, B, H, W, C, Co, relu,
-                                            s);
+        return launch_cfg<8, 32, 16, 4, 1, 2, 2, false>(x, w, scale, bias, res, out, B, H, W, C,
+                                                        Co, relu, s);
+    return launch_cfg<8, 32, 8, 8, 1, 2, 2, false>(x, w, scale, bias, res, out, B, H, W, C, Co,
+                                                   relu, s);
 }
 
 }  // namespace f32tc
@@ -702,17 +766,18 @@ int launch_mma_sync(const void* x, const void* w, const void* scale, const void*
 
 // Plain C interface for ctypes (ops/cuda/conv2d.py), as conv2d.cu's entries:
 // device pointers, `res` may be null, `stream` is a cudaStream_t; returns
-// the cudaError_t of the launch (0 = launched). f32 only, C and Co
-// multiples of 8, all pointers 16-byte aligned.
+// the cudaError_t of the launch (0 = launched). f32 only, any C >= 1 and
+// Co >= 1 (wgmma for C % 8 == 0 with Co % 32 == 0, else mma.sync), all
+// pointers 16-byte aligned.
 extern "C" int uresnet_fused_conv3x3_f32_tc(const void* x, const void* w, const void* scale,
                                             const void* bias, const void* res, void* out,
                                             int B, int H, int W, int C, int Co, int relu,
                                             void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (C % f32tc::CK != 0 || Co % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    if (Co % 64 == 0)
+    if (C < 1 || Co < 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (C % f32tc::CK == 0 && Co % 64 == 0)
         return f32tc::ws::launch<64>(x, w, scale, bias, res, out, B, H, W, C, Co, relu, s);
-    if (Co % 32 == 0)
+    if (C % f32tc::CK == 0 && Co % 32 == 0)
         return f32tc::ws::launch<32>(x, w, scale, bias, res, out, B, H, W, C, Co, relu, s);
     return f32tc::launch_mma_sync(x, w, scale, bias, res, out, B, H, W, C, Co, relu, s);
 }

@@ -1,5 +1,5 @@
 // Inline-PTX wrappers for the fused conv's tensor-core kernels (sm_80 and
-// later): cp.async with zero fill, ldmatrix, the bf16 and TF32 mma.sync and
+// later): cp.async with zero fill, ldmatrix, the bf16, f16 and TF32 mma.sync and
 // the round-to-nearest f32 -> TF32 rounding; for sm_90a, mbarriers, named
 // barriers, the async-proxy fence and the TF32 wgmma. Included by conv2d.cu and
 // conv2d_f32tc.cu.
@@ -25,6 +25,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  ::"r"(dst), "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4-byte global -> shared copy (.ca: .cg takes only 16 bytes), for f32 rows
+// that do not start on a 16-byte boundary. With valid == false nothing is
+// read and the 4 bytes are zero-filled.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 ::"r"(dst), "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -60,6 +68,16 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
                                                uint32_t b0, uint32_t b1) {
     asm volatile(
         "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The same in f16 (the fragment layout is bf16's).
+__device__ __forceinline__ void mma_f16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

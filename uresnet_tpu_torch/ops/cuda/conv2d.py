@@ -1,8 +1,9 @@
 """Fused 3x3 conv + affine (+ residual) (+ ReLU): CUDA kernel wrapper and its
 plain version, registered as PyTorch operators.
 
-Port of uresnet_tpu/ops/pallas/conv2d.py::fused_conv3x3_bn_relu_v2; the
-kernels are csrc/conv2d.cu and csrc/conv2d_f32tc.cu. ``block_h`` is gone:
+Port of uresnet_tpu/ops/pallas/conv2d.py::fused_conv3x3_bn_relu_v2, for
+each dtype the Pallas function takes that the port computes in (bf16, f16,
+f32); the kernels are csrc/conv2d.cu and csrc/conv2d_f32tc.cu. ``block_h`` is gone:
 it was TPU tiling. The v1 Pallas kernel ``fused_conv3x3_bn_relu`` computes
 the same function with another TPU blocking; its name is bound here to the
 same kernels and plain version.
@@ -16,29 +17,30 @@ tracing. So ``torch.export`` keeps the op as one node of the graph
 (engine/export.py), and a loaded artifact launches the same kernel. Importing
 this module registers them.
 
-A CUDA call goes to one of three kernels, named by `kernel_for` from dtype
-and shape alone:
+A CUDA call goes to one of three tensor-core kernels, named by `kernel_for`
+from the dtype alone; each takes any H, W, C >= 1 and Co >= 1 (channel
+counts that are not multiples of the MMA's depth run the kernel's
+channel-tail form, zero-filled and masked in the kernel):
 
-* ``'tensor_core'`` — bf16 with C and Co multiples of 16, every conv of the
-  bf16 serving forward: bf16 MMAs (csrc/conv2d.cu).
-* ``'f32_tensor_core'`` — f32 with C and Co multiples of 8, every conv of
-  the f32 serving forward: the 3xTF32 kernel (csrc/conv2d_f32tc.cu; wgmma
-  where Co is a multiple of 32, mma.sync otherwise). Each f32 operand is
-  split into hi = tf32(a) and lo = tf32(a - hi), and three TF32 MMAs
-  (lo*hi + hi*lo + hi*hi) sum into f32, which keeps f32's accuracy (~5e-7
-  of the max against float64 at K = 9*C up to 4608). One TF32 product
-  (1xTF32) would not: ~3e-4. So f32 stays true f32.
-* ``'cuda_core'`` — other channel counts, of either dtype: f32 FMAs on the
-  CUDA cores (csrc/conv2d.cu), any H, W, C, Co.
+* ``'tensor_core'`` — bf16, every conv of the bf16 serving forward: bf16
+  MMAs (csrc/conv2d.cu).
+* ``'f16_tensor_core'`` — f16: the same kernel with the f16 MMA.
+* ``'f32_tensor_core'`` — f32, every conv of the f32 serving forward: the
+  3xTF32 kernel (csrc/conv2d_f32tc.cu; wgmma where C is a multiple of 8
+  and Co of 32, mma.sync otherwise). Each f32 operand is split into
+  hi = tf32(a) and lo = tf32(a - hi), and three TF32 MMAs (lo*hi + hi*lo +
+  hi*hi) sum into f32, which keeps f32's accuracy (~5e-7 of the max
+  against float64 at K = 9*C up to 4608). One TF32 product (1xTF32) would
+  not: ~3e-4. So f32 stays true f32.
 
 On a CUDA tensor an op launches its kernel or raises; it never falls back
 to another kernel or to the plain version. On a CPU tensor it runs the
 plain version. The counters are bumped inside the CUDA implementation,
 where a kernel is launched, so launches from a loaded artifact count too:
 ``launches`` (v2) and ``launches_v1`` by entry point,
-``launches_tensor_core``, ``launches_f32_tensor_core`` and
-``launches_cuda_core`` by kernel (plain-version calls count nowhere), so a
-run can show which kernel served its path.
+``launches_tensor_core``, ``launches_f16_tensor_core`` and
+``launches_f32_tensor_core`` by kernel (plain-version calls count
+nowhere), so a run can show which kernel served its path.
 """
 
 from __future__ import annotations
@@ -55,14 +57,15 @@ from uresnet_tpu_torch.ops.conv import true_f32
 launches = 0
 launches_v1 = 0
 launches_tensor_core = 0
+launches_f16_tensor_core = 0
 launches_f32_tensor_core = 0
-launches_cuda_core = 0
 
-# the CUDA-core kernel's entry by dtype; the tensor-core kernels' entries
-_ENTRY = {torch.float32: "uresnet_fused_conv3x3_f32",
-          torch.bfloat16: "uresnet_fused_conv3x3_bf16"}
-_TC_ENTRY = {"tensor_core": "uresnet_fused_conv3x3_bf16_tc",
-             "f32_tensor_core": "uresnet_fused_conv3x3_f32_tc"}
+# the kernel of each dtype, and each kernel's C entry
+_KERNEL = {torch.bfloat16: "tensor_core", torch.float16: "f16_tensor_core",
+           torch.float32: "f32_tensor_core"}
+_ENTRY = {"tensor_core": "uresnet_fused_conv3x3_bf16_tc",
+          "f16_tensor_core": "uresnet_fused_conv3x3_f16_tc",
+          "f32_tensor_core": "uresnet_fused_conv3x3_f32_tc"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,7 +74,7 @@ def _lib() -> ctypes.CDLL:
     from uresnet_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library()
-    for name in (*_ENTRY.values(), *_TC_ENTRY.values()):
+    for name in _ENTRY.values():
         fn = getattr(lib, name)
         # x, w, scale, bias, residual, out; B, H, W, C, Co, relu; stream
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -99,8 +102,8 @@ def fused_conv3x3_bn_relu_v2_reference(x, w, scale, bias, residual=None, *,
 def _check(x, w, scale, bias, residual):
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in _ENTRY:
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dtype not in _KERNEL:
+        raise TypeError(f"x must be float32, bfloat16 or float16, got {x.dtype}")
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, W, C), got shape {tuple(x.shape)}")
     B, H, W, C = x.shape
@@ -121,15 +124,10 @@ def _check(x, w, scale, bias, residual):
 
 
 def kernel_for(dtype: torch.dtype, C: int, Co: int) -> str:
-    """The kernel a CUDA call runs: 'tensor_core' for bf16 with C and Co
-    multiples of 16 (the bf16 MMA's depth and the kernel's channel tiles),
-    'f32_tensor_core' for f32 with C and Co multiples of 8 (the TF32 MMA's
-    depth and the narrowest channel tile), else 'cuda_core'."""
-    if dtype == torch.bfloat16 and C % 16 == 0 and Co % 16 == 0:
-        return "tensor_core"
-    if dtype == torch.float32 and C % 8 == 0 and Co % 8 == 0:
-        return "f32_tensor_core"
-    return "cuda_core"
+    """The kernel a CUDA call runs: 'tensor_core' for bf16,
+    'f16_tensor_core' for f16, 'f32_tensor_core' for f32, at every C and
+    Co (each kernel picks its own tile configuration from them)."""
+    return _KERNEL[dtype]
 
 
 def _launch(x, w, scale, bias, residual, relu, entry: str) -> torch.Tensor:
@@ -143,18 +141,15 @@ def _launch(x, w, scale, bias, residual, relu, entry: str) -> torch.Tensor:
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("all operands must be contiguous and on "
                              f"{x.device}")
-    if B > 65535:
-        raise ValueError(f"batch {B} exceeds the kernel's grid limit 65535")
     out = torch.empty((B, H, W, Co), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     lib = _lib()
     kernel = kernel_for(x.dtype, C, Co)
-    if kernel != "cuda_core" and any(t.data_ptr() % 16 for t in tensors + (out,)):
+    if any(t.data_ptr() % 16 for t in tensors + (out,)):
         raise ValueError(f"the {kernel} kernel needs 16-byte aligned "
                          "operands (a tensor starts inside its storage)")
-    fn = getattr(lib, _ENTRY[x.dtype] if kernel == "cuda_core"
-                 else _TC_ENTRY[kernel])
+    fn = getattr(lib, _ENTRY[kernel])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
@@ -206,7 +201,7 @@ def fused_conv3x3_bn_relu_v2(x: torch.Tensor, w: torch.Tensor,
                              relu: bool = True) -> torch.Tensor:
     """y = relu?(conv3x3_SAME(x, w) * scale + bias [+ residual]), NHWC.
 
-    x (B, H, W, C) f32/bf16; w (3, 3, C, Co) in x's dtype; scale, bias
+    x (B, H, W, C) f32/bf16/f16; w (3, 3, C, Co) in x's dtype; scale, bias
     (Co,) f32; residual (B, H, W, Co) in x's dtype or None. f32
     accumulation, one write in x's dtype. Checks the operands, then calls
     the op ``uresnet_tpu_torch::fused_conv3x3_bn_relu_v2``."""
