@@ -168,6 +168,17 @@ configs/train_3d_192.yaml, with random seeded weights:
                 gradients, convertTensor and copies per step) and one
                 config-4 level-0 weight gradient in each layout. The SP
                 leg in packed f32 is phase 14's f32 leg.
+ 16. tools    — ``python -m uresnet_tpu_torch.tools.bench`` three times
+                (the default 2D train step at 512^2, batch 32, packed;
+                ``--infer``; ``--dims 3``): one JSON line each with
+                bench.py's keys, the 2D train ms/step within 15% of phase
+                7's; then ``tools.reproduce_flagship`` in-process on
+                configs/train_2d_512.yaml at 30 iterations, 64 training
+                and 64 held-out events (width, depth and batch uncut; the
+                YAML needs PyYAML on the card): it exits 0, stages 2 and 4
+                print the same ``metrics:`` line, each stage's wall time
+                printed; its ckpt/, log/ and artifacts/ files are removed
+                after.
 
 Then one JSON line of kernel results, the card line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is
@@ -3073,6 +3084,117 @@ def packed_phase(fused_mod, card, dev):
           f"{time.time() - t0:.1f} s | {card}", flush=True)
 
 
+# -- phase 16: the benchmark tool and the flagship reproducer --------------------
+
+# the keys bench.py prints for a train step (the forward's lack the note)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "useful_tflops",
+              "raw_tflops", "baseline_note"}
+# (tag, bench arguments, keys): the default 2D train step (512^2, batch 32,
+# packed), the eval forward, config 4's step at 192^3
+BENCH_RUNS = (("train", ["--steps", "10"], BENCH_KEYS),
+              ("infer", ["--infer", "--steps", "10"],
+               BENCH_KEYS - {"baseline_note"}),
+              ("3d", ["--dims", "3", "--steps", "5"], BENCH_KEYS))
+# the bench's 2D train ms/step against phase 7's train_step_light median:
+# the same packed step on a dense batch (phase 7's densifies a sparse one)
+BENCH_STEP_REL = 0.15
+# the flagship reproducer at reduced depth: the flagship config itself
+# (the YAML, read by PyYAML) at its width, depth and batch, 30 iterations,
+# 64 training and 64 held-out events
+REPRO = dict(config="configs/train_2d_512.yaml", iterations=30,
+             train_events=64, heldout_events=64, name="chip_smoke_repro")
+
+
+def bench_runs(card, t_step7):
+    """Phase 16a: ``python -m uresnet_tpu_torch.tools.bench`` in its three
+    modes, each one JSON line with bench.py's keys; the 2D train rate held
+    to phase 7's step."""
+    out = {}
+    for tag, argv, keys in BENCH_RUNS:
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "uresnet_tpu_torch.tools.bench", *argv],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"bench {argv} exited {proc.returncode}:\n"
+                               f"{proc.stderr[-4000:]}")
+        lines = proc.stdout.splitlines()
+        if len(lines) != 1:
+            raise AssertionError(f"bench {argv} printed {len(lines)} lines: "
+                                 f"{proc.stdout[-2000:]}")
+        out[tag] = rec = json.loads(lines[0])
+        if set(rec) != keys or not rec["value"] > 0:
+            raise AssertionError(f"bench {argv}: {rec} (keys {sorted(keys)})")
+        print(f"[bench]   {' '.join(argv)}: {lines[0]} ({time.time() - t0:.1f} "
+              f"s wall) | {card}", flush=True)
+    B = FLAGSHIP["data"]["batch_size"]
+    ms = B / out["train"]["value"] * 1e3
+    rel = ms / t_step7 - 1
+    print(f"[bench]   2D train {ms:.2f} ms/step against phase 7's "
+          f"train_step_light {t_step7:.2f} ms: {rel:+.2%} (limit "
+          f"{BENCH_STEP_REL:.0%}) | {card}", flush=True)
+    if abs(rel) > BENCH_STEP_REL:
+        raise AssertionError(f"bench 2D train {ms:.2f} ms/step is {rel:+.2%} "
+                             f"off phase 7's {t_step7:.2f} ms")
+
+
+def repro_run(card):
+    """Phase 16b: the port's reproduce_flagship in-process, at REPRO's
+    iterations and events: exit 0, its OK line, stage 2's and stage 4's
+    ``metrics:`` lines identical; each stage's wall time. What it wrote
+    under ckpt/, log/ and artifacts/ is removed."""
+    from uresnet_tpu_torch.tools import reproduce_flagship as rf
+
+    name = REPRO["name"]
+    rf.FLAGSHIPS["chip_smoke"] = dict(REPRO)
+    parents = [os.path.join(rf.REPO, d) for d in ("ckpt", "log", "artifacts")]
+    new_parents = [d for d in parents if not os.path.exists(d)]
+    run, walls = rf.run, []
+
+    def timed(cmd, **kw):
+        t0 = time.time()
+        result = run(cmd, **kw)
+        walls.append((cmd[2], time.time() - t0))  # [python, -m, module, ...]
+        return result
+
+    rf.run = timed
+    try:
+        out = run_main(rf, ["chip_smoke"], "repro")
+    finally:
+        rf.run = run
+        del rf.FLAGSHIPS["chip_smoke"]
+        for d in parents[:2]:
+            shutil.rmtree(os.path.join(d, name), ignore_errors=True)
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(os.path.join(parents[2], f"{name}_bf16.npz"))
+        for d in new_parents:
+            if os.path.isdir(d) and not os.listdir(d):
+                os.rmdir(d)
+    metrics = [ln for ln in out.splitlines() if ln.startswith("metrics: ")]
+    if (len(metrics) != 2 or metrics[0] != metrics[1]
+            or f"OK: artifacts/{name}_bf16.npz" not in out):
+        raise AssertionError(f"reproduce_flagship: metrics lines {metrics}")
+    stats = ast.literal_eval(metrics[0].split(": ", 1)[1])
+    if stats["n_events"] != REPRO["heldout_events"]:
+        raise AssertionError(f"held-out n_events {stats['n_events']}")
+    for i, (what, wall) in enumerate(walls, 1):
+        print(f"[repro]   stage {i} {what}: {wall:.1f} s wall", flush=True)
+    print(f"[repro]   {REPRO['iterations']} iterations at the flagship's "
+          f"width, depth and batch: stages 2 and 4 print the same metrics "
+          f"(miou {stats['miou']:.6f}, n_events {stats['n_events']:.0f}) | "
+          f"{card}", flush=True)
+
+
+def tools_phase(card, t_step7):
+    """Phase 16: the benchmark tool and the flagship reproducer."""
+    t0 = time.time()
+    torch.cuda.empty_cache()  # the tools' processes need the card's memory
+    bench_runs(card, t_step7)
+    repro_run(card)
+    print(f"[tools]   phase 16 wall {time.time() - t0:.1f} s | {card}",
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch")
@@ -3251,6 +3373,9 @@ def main():
 
     # 15. the packed layout against the canonical one
     packed_phase(fused_mod, card, dev)
+
+    # 16. the benchmark tool and the flagship reproducer
+    tools_phase(card, t_step7)
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "uresnet_tpu")
                     or m.startswith(("jax.", "jaxlib", "uresnet_tpu.")))

@@ -426,6 +426,19 @@ class Trainer:
             normalize=self.cfg.train.loss_normalize)
         return metrics
 
+    @torch.no_grad()
+    def forward(self, ts: TrainState, data) -> torch.Tensor:
+        """Inference forward: per-pixel softmax scores (f32, B x *S x
+        num_class) of the channels-last ``data`` (B, *S, C_in; numpy or a
+        tensor) on the trainer's device. The unfolded eval forward (BN in
+        eval mode, packed with ``model.pack``), as the JAX trainer's
+        ``forward``: not the BN-folded ``build_logits_fn`` that serving and
+        evaluation run. Under a model axis it runs on the gathered state
+        (a collective)."""
+        x = torch.as_tensor(data, dtype=torch.float32, device=self.device)
+        logits, _ = self.gather_state(ts).model(x, train=False)
+        return torch.softmax(logits, dim=-1)
+
     # -- data -----------------------------------------------------------------
 
     def make_loader(self, *, train: bool = True, start_event: int = 0,
