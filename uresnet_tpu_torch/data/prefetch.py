@@ -19,13 +19,15 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
+from uresnet_tpu_torch.engine.profiling import annotate
+
 
 def _stage(batch: Dict, device: torch.device, stream):
     """Array leaves -> tensors on ``device`` (scalars pass through), and
     the side stream's event after the copies (None on the CPU)."""
     out = {}
     ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
-    with ctx:
+    with annotate("uresnet.stage"), ctx:
         for k, v in batch.items():
             if isinstance(v, np.ndarray) and v.ndim > 0:
                 t = torch.from_numpy(np.ascontiguousarray(v))

@@ -53,6 +53,7 @@ from uresnet_tpu_torch.engine.metrics import (loss_from_counts,
                                               metrics_from_counts,
                                               reduce_counts,
                                               segmentation_counts)
+from uresnet_tpu_torch.engine.profiling import annotate
 from uresnet_tpu_torch.parallel.mesh import all_reduce_counts
 
 
@@ -163,15 +164,18 @@ def _ana_step_sparse(cfg, logits_fn, batch) -> Dict[str, torch.Tensor]:
     its metrics from the exported points)."""
     S = cfg.data.image_size
     sparse = {k: v for k, v in batch.items() if k != "row_valid"}
-    dense = _densify_ones(cfg, sparse)
-    logits = logits_fn(dense["data"])
-    out = {"pscores": scores_at_points(sparse, torch.softmax(logits, dim=-1),
-                                       image_size=S),
-           "origin": crop_origin(sparse, image_size=S)}
-    if "row_valid" in batch:
-        out.update(segmentation_counts(
-            logits, dense["label"], dense["data"],
-            num_class=cfg.model.num_class, row_valid=batch["row_valid"]))
+    with annotate("uresnet.ana.densify"):
+        dense = _densify_ones(cfg, sparse)
+    with annotate("uresnet.ana.forward"):
+        logits = logits_fn(dense["data"])
+    with annotate("uresnet.ana.scores"):
+        out = {"pscores": scores_at_points(
+                   sparse, torch.softmax(logits, dim=-1), image_size=S),
+               "origin": crop_origin(sparse, image_size=S)}
+        if "row_valid" in batch:
+            out.update(segmentation_counts(
+                logits, dense["label"], dense["data"],
+                num_class=cfg.model.num_class, row_valid=batch["row_valid"]))
     return out
 
 

@@ -83,6 +83,7 @@ from uresnet_tpu_torch.engine.metrics import (loss_from_counts,
                                               segmentation_metrics)
 from uresnet_tpu_torch.engine.optim import (AdamState, adam_init, adam_update,
                                             freeze_mask)
+from uresnet_tpu_torch.engine.profiling import annotate
 from uresnet_tpu_torch.models.convert import (flatten_tree, jax_train_state,
                                               load_jax_train_state)
 from uresnet_tpu_torch.models.fold import KERNEL_BACKENDS
@@ -300,20 +301,22 @@ class Trainer:
         ph = self._loss_phases
         packed = (ph > 1
                   or batch["label"].dim() == self.cfg.model.dims + 2)
-        logits, new_state = model(batch["data"], train=True, mesh=self.mesh,
-                                  packed_logits=packed)
-        if packed:
-            logits = logits.reshape(logits.shape[:-1]
-                                    + (ph, self.cfg.model.num_class))
-        label, weight, _ = self._targets(batch, logits)
-        if group is not None and normalize == "weight_sum":
-            w = weight.float()
-            den = all_reduce_sum(w.sum(), group)
-            loss = (torch.sum(w * softmax_xent_per_pixel(logits, label))
-                    * self.mesh.batch.size / torch.clamp(den, min=1e-6))
-        else:
-            loss = weighted_softmax_xent(logits, label, weight,
-                                         normalize=normalize)
+        with annotate("uresnet.train.forward"):
+            logits, new_state = model(batch["data"], train=True,
+                                      mesh=self.mesh, packed_logits=packed)
+            if packed:
+                logits = logits.reshape(logits.shape[:-1]
+                                        + (ph, self.cfg.model.num_class))
+        with annotate("uresnet.train.loss"):
+            label, weight, _ = self._targets(batch, logits)
+            if group is not None and normalize == "weight_sum":
+                w = weight.float()
+                den = all_reduce_sum(w.sum(), group)
+                loss = (torch.sum(w * softmax_xent_per_pixel(logits, label))
+                        * self.mesh.batch.size / torch.clamp(den, min=1e-6))
+            else:
+                loss = weighted_softmax_xent(logits, label, weight,
+                                             normalize=normalize)
         return loss, logits, new_state
 
     def _global_counts(self, logits, batch, group, *, loss_sums=False
@@ -334,58 +337,69 @@ class Trainer:
                     with_metrics: bool = True) -> Tuple[TrainState, Dict]:
         cfg = self.cfg
         mesh = self.mesh
-        decisions = None
-        if cfg.data.augment:
-            # drawn for the global batch; this data index applies its rows
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(_key_seed(ts.key))
-            B = next(v for v in batch.values() if torch.is_tensor(v)).shape[0]
-            d = mesh.index[0]
-            decisions = draw_decisions(gen, B * mesh.data, cfg.model.dims)[
-                :, d * B:(d + 1) * B]
-        sparse = "coords" in batch
-        batch = self._prepare(batch, decisions if sparse else None,
-                              packed_targets=sparse and self._loss_phases > 1)
-        if decisions is not None and not sparse:
-            batch = augment_batch(batch, dims=cfg.model.dims,
-                                  decisions=decisions)
-        batch = self._local_rows(batch)
+        with annotate("uresnet.train.densify"):
+            decisions = None
+            if cfg.data.augment:
+                # drawn for the global batch; this data index applies its
+                # rows
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(_key_seed(ts.key))
+                B = next(v for v in batch.values()
+                         if torch.is_tensor(v)).shape[0]
+                d = mesh.index[0]
+                decisions = draw_decisions(gen, B * mesh.data,
+                                           cfg.model.dims)
+                decisions = decisions[:, d * B:(d + 1) * B]
+            sparse = "coords" in batch
+            batch = self._prepare(
+                batch, decisions if sparse else None,
+                packed_targets=sparse and self._loss_phases > 1)
+            if decisions is not None and not sparse:
+                batch = augment_batch(batch, dims=cfg.model.dims,
+                                      decisions=decisions)
+            batch = self._local_rows(batch)
         group = mesh.batch.group
         model = ts.model
         params = dict(model.named_parameters())
         trainable = [k for k, p in params.items() if p.requires_grad]
         with torch.enable_grad():
             loss, logits, new_state = self._loss_fn(model, batch)
-            grads = torch.autograd.grad(loss, [params[k] for k in trainable])
+            with annotate("uresnet.train.backward"):
+                grads = torch.autograd.grad(loss,
+                                            [params[k] for k in trainable])
         loss = loss.detach()
         if group is not None:
             # one bucket: the gradients and the logged loss, averaged
-            loss = loss.reshape(1).clone()
-            all_reduce_mean([*grads, loss], group)
-            loss = loss[0]
-        new_params, opt = adam_update(
-            dict(zip(trainable, grads)), ts.opt,
-            {k: p.detach() for k, p in params.items()}, cfg.optim,
-            freeze=self._freeze, norm_axis=mesh.model_axis,
-            sliced=self._tp_dims)
-        with torch.no_grad():
-            for k, p in params.items():
-                p.data = new_params[k]
-            flat = dict(model.named_buffers())
-            for k, v in flatten_tree(new_state).items():
-                flat[k].data = v
+            with annotate("uresnet.train.allreduce"):
+                loss = loss.reshape(1).clone()
+                all_reduce_mean([*grads, loss], group)
+                loss = loss[0]
+        with annotate("uresnet.train.optim"):
+            new_params, opt = adam_update(
+                dict(zip(trainable, grads)), ts.opt,
+                {k: p.detach() for k, p in params.items()}, cfg.optim,
+                freeze=self._freeze, norm_axis=mesh.model_axis,
+                sliced=self._tp_dims)
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.data = new_params[k]
+                flat = dict(model.named_buffers())
+                for k, v in flatten_tree(new_state).items():
+                    flat[k].data = v
         metrics = {"loss": loss}
         if with_metrics:
-            # the targets and the charge in the loss layout: the per-pixel
-            # metrics are layout-invariant
-            label, weight, data = self._targets(batch, logits)
-            tb = {"label": label, "weight": weight, "data": data}
-        if with_metrics and group is not None:
-            metrics.update(metrics_from_counts(
-                self._global_counts(logits.detach(), tb, group)))
-        elif with_metrics:
-            metrics.update(segmentation_metrics(
-                logits.detach(), label, data, num_class=cfg.model.num_class))
+            with annotate("uresnet.train.metrics"):
+                # the targets and the charge in the loss layout: the
+                # per-pixel metrics are layout-invariant
+                label, weight, data = self._targets(batch, logits)
+                if group is not None:
+                    tb = {"label": label, "weight": weight, "data": data}
+                    metrics.update(metrics_from_counts(
+                        self._global_counts(logits.detach(), tb, group)))
+                else:
+                    metrics.update(segmentation_metrics(
+                        logits.detach(), label, data,
+                        num_class=cfg.model.num_class))
         key = np.array([ts.key[0], (int(ts.key[1]) + 1) & 0xFFFFFFFF], np.uint32)
         return TrainState(model=model, opt=opt, key=key), metrics
 
