@@ -31,6 +31,16 @@ configs/train_3d_192.yaml, with random seeded weights:
                 3xTF32); the channel-tail route's own run (two calls at
                 batch 32, counted: bf16 24->40, f32 20->36); the v1 entry
                 point at two shapes;
+  3b. bn      — train BN's four kernels (csrc/bn_train.cu: statistics,
+                affine + residual + ReLU, gradient sums, input gradient)
+                vs their plain versions, forward and every gradient, in
+                bf16, f16 and f32 (f64 at the smallest shape) at the
+                training steps' 2D and 3D level-0 shapes and the deepest
+                2D level; each bf16 kernel timed beside its byte bound,
+                the plain versions and the library's train BN + ReLU
+                (phases 7 and 9 count the launches of the main path's
+                steps: each kernel once per BatchNorm module a step, 55
+                in 2D and 45 in 3D);
   4. serve    — 64 synthetic 512^2 events through ``python -m
                 uresnet_tpu_torch.cli.infer`` (2 batches of 32, the default
                 streamed sparse export) from a checkpoint in the JAX npz
@@ -62,7 +72,9 @@ configs/train_3d_192.yaml, with random seeded weights:
                 checks the logged losses, the validation's event count and
                 the checkpoint's JAX key layout, serves 32 events from it
                 through ``cli.infer`` (exactly 44 kernel launches), times
-                ``train_step_light`` and profiles 3 steps (appended to
+                ``train_step_light`` (steps queued back to back, after the
+                earlier phases' cached memory is released), counts its
+                train-BN launches and profiles 3 steps (appended to
                 profile.txt);
   7b. dw      — the bf16 conv's f32 weight gradient vs float64 at a
                 flagship shape, and its data gradient vs stock autograd;
@@ -187,7 +199,7 @@ build/uresnet_tpu_torch/smoke/ in the checkout.
 
     python3 chip_smoke.py --kernels-only
 
-runs phases 1-3 alone (a short check of the kernels) and prints no result
+runs phases 1-3b alone (a short check of the kernels) and prints no result
 line; ``--parallel-only`` runs the build and phases 13-14 (with two or more
 cards their NCCL legs alone: the run for a four-card machine) and prints
 no result line; ``--packed-only`` the build and phase 15. ``--dp-worker MODE SPEC`` is one rank of phase 11 (modes
@@ -274,7 +286,7 @@ FWD_MAX_SOFTMAX_DIFF, FWD_MIN_AGREE = 0.05, 0.98
 # the bf16 conv's f32 weight gradient vs the float64 product of the same
 # bf16 operands, relative to its max: bf16 rounding would be ~4e-3
 DW_REL = 1e-5
-KERNELS_ONLY = False  # phases 1-3 alone (--kernels-only)
+KERNELS_ONLY = False  # phases 1-3b alone (--kernels-only)
 # kernel-name fragments of layout conversions (cuDNN's nchwToNhwc-style
 # transposes, torch's permute copies)
 LAYOUT_KERNELS = ("nchwtonhwc", "nhwctonchw", "transpose", "permute",
@@ -681,6 +693,264 @@ def ragged_phase(fused_mod, cfg, dev, card):
     return rec
 
 
+# phase 3b: train BN's kernels (ops/cuda/bn_train.py) at the shapes of the
+# training steps' largest and smallest calls: (name, shape, phases,
+# residual); every call on the main path has the ReLU
+BN_CASES = (("2D level 0", (32, 128, 256, 128), 8, True),
+            ("3D level 0", (1, 96, 96, 96, 128), 8, False),
+            ("2D deepest", (32, 16, 16, 512), 1, True))
+BN_KERNELS = ("stats", "apply", "grad_reduce", "grad_input")
+# kernel vs plain on the same operands. The sums (stats, grad_reduce) add
+# ~8.4 M terms a channel in another order: within BN_SUM_REL of their max,
+# beyond what ReLU masks recomputed from x may account for (`bn_flip_slack`).
+# The elementwise outputs: check_close's bounds, but at most BN_FLIPS of
+# the elements outside them (such a mask flips an element's gradient).
+BN_SUM_REL, BN_FLIPS = 1e-5, 1e-6
+def graph_ms(fn, inner=20, reps=5) -> float:
+    """Device ms of one call of ``fn``: a CUDA graph of ``inner`` calls,
+    replayed, so the host's launch cost is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    t = time_ms(graph.replay, reps=reps, warmup=1) / inner
+    del graph
+    return t
+
+
+def bn_launches(mod):
+    return {k: getattr(mod, f"launches_bn_train_{k}") for k in BN_KERNELS}
+
+
+def bn_check(name, got, want, dtype, n):
+    """check_close for an elementwise output, but allowing BN_FLIPS of the
+    elements past the tolerance; (max err / max|want|, elements past it)."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: kernel output is not finite")
+    err = (got - want).abs()
+    scale = max(want.abs().max().item(), 1e-30)
+    rel = {torch.bfloat16: BF16_REL, torch.float16: F16_REL}.get(dtype)
+    if rel is None:
+        bad = int((err > F32_REL * scale).sum())
+    else:
+        bad = int((err > rel * want.abs() + BF16_SLACK * scale).sum())
+    if bad > max(1, BN_FLIPS * n):
+        raise AssertionError(f"{name}: {bad} elements out of tolerance, max "
+                             f"abs err {err.max().item():.3e}")
+    return err.max().item() / scale, bad
+
+
+def bn_sum_check(name, got, want, slack=0.0):
+    """Sums within BN_SUM_REL of their max, beyond ``slack`` (per sum)."""
+    err = ((got.double() - want.double()).abs() - slack).clamp_min(0)
+    rel = (err.max() / want.double().abs().max().clamp_min(1e-30)).item()
+    if not rel <= BN_SUM_REL:
+        raise AssertionError(f"{name}: sums {rel:.3e} of the max from the "
+                             f"plain version (limit {BN_SUM_REL})")
+    return rel
+
+
+def bn_flip_slack(dout, x, mean, rstd, scale, bias):
+    """What the gradient sums may differ by where the ReLU mask is
+    recomputed from x: the kernel rounds x * g + b once (fma), the plain
+    version twice, so an element whose value lies within 2^-20 of its
+    terms' size may fall on either side of 0. Per sum: the elements'
+    |dy|, and |dy * xhat|."""
+    C = mean.shape[0]
+    xs = x.to(mean.dtype).view(-1, C)
+    g = scale * rstd
+    b = bias - mean * g
+    near = ((xs * g + b).abs() <= 2.0 ** -20 * ((xs * g).abs() + b.abs()))
+    d = dout.to(mean.dtype).view(-1, C).abs() * near
+    return torch.cat([d.sum(0), (d * ((xs - mean) * rstd).abs()).sum(0)])
+
+
+def bn_zero():
+    """Set the four train-BN launch counters to 0."""
+    from uresnet_tpu_torch.ops.cuda import bn_train
+
+    for k in BN_KERNELS:
+        setattr(bn_train, f"launches_bn_train_{k}", 0)
+
+
+def bn_main_path(model, steps, tag, card) -> int:
+    """The four kernels' launches since `bn_zero`, over ``steps`` train
+    steps of the main path: each kernel once per BatchNorm module of the
+    model a step, so no train BN ran unfused. Returns their sum."""
+    from uresnet_tpu_torch.models.blocks import BatchNorm
+    from uresnet_tpu_torch.ops.cuda import bn_train
+
+    n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+    got = bn_launches(bn_train)
+    if got != dict.fromkeys(BN_KERNELS, n_bn * steps):
+        raise AssertionError(f"{tag}: train BN launches {got} over {steps} "
+                             f"steps, not {n_bn} of each a step")
+    print(f"[bn]      {tag}: {n_bn} BatchNorm modules, launches over "
+          f"{steps} timed steps {got} = {n_bn} of each kernel a step | "
+          f"{card}", flush=True)
+    return sum(got.values())
+
+
+def bn_phase(dev, card):
+    """Phase 3b: train BN's four kernels against their plain versions on
+    the card, forward and every gradient, in bf16, f16 and f32 (f64 at the
+    smallest shape), at BN_CASES; the launch counters; each kernel's time
+    in bf16 beside its bound (bytes: each operand read once, each output
+    written once, at 3.35 TB/s), the plain versions' and the library's
+    (F.batch_norm(training=True) + residual + ReLU, forward and backward:
+    a yardstick only); a kernel's time is a CUDA graph's replay, its eager
+    time a call (the host's launch cost, where it is the longer) beside it.
+    Returns the record of the kernels row; its ``launches`` are counted on
+    the main path's train steps (phases 7 and 9, `bn_main_path`)."""
+    from uresnet_tpu_torch.ops.cuda import bn_train as bn
+
+    t0 = time.time()
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    rec = {"launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+           "bound_ms": 0.0, "library_ms": 0.0, "bound_by": "bytes"}
+    for name, shape, P, res in BN_CASES:
+        dtypes = (torch.bfloat16, torch.float16, torch.float32)
+        if name == "2D deepest":
+            dtypes += (torch.float64,)
+        for dt in dtypes:
+            sd = bn.stats_dtype(dt)
+            W = shape[-1]
+            C = W // P
+            rows = int(np.prod(shape[:-1]))
+            n = rows * W
+
+            def rnd(*s, dtype=dt):
+                return torch.randn(*s, generator=g, device=dev).to(dtype)
+
+            x = (rnd(rows, W, dtype=torch.float32) * 1.5 + 0.3).to(dt)
+            r = rnd(rows, W) if res else None
+            dout = rnd(rows, W)
+            scale = torch.rand(C, generator=g, device=dev).to(sd) + 0.5
+            bias = rnd(C, dtype=sd) * 0.1
+            run = (rnd(C, dtype=sd), torch.rand(C, generator=g,
+                                                device=dev).to(sd) + 0.5)
+            before = bn_launches(bn)
+            sums = bn.bn_train_stats(x, C, 1e-3, *run, 0.99)
+            errs = [bn_sum_check("stats", sums[:2 * C + 1],
+                                 bn.bn_train_stats_reference(
+                                     x, C, 1e-3, *run, 0.99)[:2 * C + 1])]
+            # the kernel's moments and running stats, from its sums, as
+            # torch takes them
+            mean, var, rstd = sums[2 * C + 1:5 * C + 1].view(3, C).unbind()
+            errs.append(bn_sum_check("stats' moments", sums[2 * C + 1:],
+                                     torch.cat([*bn.moments(sums, C, 1e-3),
+                                                bn.running(run[0], mean, 0.99),
+                                                bn.running(run[1], var, 0.99)])))
+            count = sums[2 * C:2 * C + 1]
+            vecs = (mean, rstd, scale, bias)
+            out = bn.bn_train_apply(x, r, *vecs, relu=True)
+            want = bn.bn_train_apply_reference(x, r, *vecs, True)
+            e, flips = bn_check("apply", out, want, dt, n)
+            errs.append(e)
+            mask = out if res else None
+            red = bn.bn_train_grad_reduce(dout, x, mask, *vecs, relu=True)
+            errs.append(bn_sum_check(
+                "grad_reduce", red, bn.bn_train_grad_reduce_reference(
+                    dout, x, mask, *vecs, True),
+                0.0 if res else bn_flip_slack(dout, x, *vecs)))
+            dx, dres = bn.bn_train_grad_input(dout, x, mask, *vecs, red,
+                                              count, relu=True, residual=res)
+            wdx, wdres = bn.bn_train_grad_input_reference(
+                dout, x, mask, *vecs, red, count, True, res)
+            e, f2 = bn_check("grad_input dx", dx, wdx, dt, n)
+            errs.append(e)
+            flips += f2
+            if res:
+                e, f3 = bn_check("grad_input dres", dres, wdres, dt, n)
+                errs.append(e)
+                flips += f3
+            torch.cuda.synchronize()
+            counts = {k: v - before[k] for k, v in bn_launches(bn).items()}
+            if counts != dict.fromkeys(BN_KERNELS, 1):
+                raise AssertionError(f"bn {name} {dt}: launches {counts}")
+            rec["max_abs_err"] = max(rec["max_abs_err"], max(errs))
+            line = (f"[bn]      {name} {tuple(shape)} {P} phases of {C} "
+                    f"{str(dt)[6:]}, relu{' + residual' if res else ''}: "
+                    f"kernel vs plain, of the max: stats {errs[0]:.2e} "
+                    f"(moments {errs[1]:.2e}), apply {errs[2]:.2e}, grad "
+                    f"sums {errs[3]:.2e}, dx {errs[4]:.2e}"
+                    + (f", dres {errs[5]:.2e}" if res else "")
+                    + f"; {flips} elements past the ulp bound")
+            if dt != torch.bfloat16:
+                print(line + f" | {card}", flush=True)
+                continue
+            # times (bf16, the training dtype): each kernel alone; the
+            # plain versions and the library, forward and backward
+            e = x.element_size()
+            act, vb = n * e, 4 * C
+            least = {"stats": act + 9 * vb + 4,
+                     "apply": act * (2 + res) + 4 * vb,
+                     "grad_reduce": act * (2 + res) + 6 * vb,
+                     "grad_input": act * (3 + 2 * res) + 6 * vb + 4}
+            calls = {
+                "stats": lambda: bn.bn_train_stats(x, C, 1e-3, *run, 0.99),
+                "apply": lambda: bn.bn_train_apply(x, r, *vecs, relu=True),
+                "grad_reduce": lambda: bn.bn_train_grad_reduce(
+                    dout, x, mask, *vecs, relu=True),
+                "grad_input": lambda: bn.bn_train_grad_input(
+                    dout, x, mask, *vecs, red, count, relu=True,
+                    residual=res)}
+            parts, t_four = [], 0.0
+            for k in BN_KERNELS:
+                t = graph_ms(calls[k])
+                t_eager = time_ms(calls[k], reps=5, warmup=2, inner=10)
+                b = least[k] / HBM_BYTES_PER_S * 1e3
+                parts.append(f"{k} {t:.4f} ms (bound {b:.4f}, "
+                             f"{100 * b / t:.1f}%, {least[k] / t / 1e6:.0f} GB/s;"
+                             f" eager {t_eager:.4f} ms a call)")
+                t_four += t
+                rec["ms"] += t
+                rec["bound_ms"] += b
+
+            def plain():
+                s_ = bn.bn_train_stats_reference(x, C, 1e-3, *run, 0.99)
+                m_, _, q_ = s_[2 * C + 1:5 * C + 1].view(3, C).unbind()
+                o_ = bn.bn_train_apply_reference(x, r, m_, q_, scale, bias,
+                                                 True)
+                v_ = (m_, q_, scale, bias)
+                k_ = o_ if res else None
+                red_ = bn.bn_train_grad_reduce_reference(dout, x, k_, *v_, True)
+                bn.bn_train_grad_input_reference(dout, x, k_, *v_, red_,
+                                                 s_[2 * C:2 * C + 1], True, res)
+
+            xl = x.view(-1, C).detach().requires_grad_()
+            rl = r.view(-1, C) if res else None
+            w_, b_ = scale.clone().requires_grad_(), bias.clone().requires_grad_()
+
+            def library():
+                y = torch.nn.functional.batch_norm(xl, None, None, w_, b_,
+                                                   training=True, eps=1e-3)
+                if rl is not None:
+                    y = y + rl
+                torch.autograd.grad(torch.relu(y), (xl, w_, b_),
+                                    dout.view(-1, C))
+
+            t_plain = time_ms(plain, reps=3, warmup=1)
+            t_lib = time_ms(library, reps=3, warmup=1)
+            rec["plain_ms"] += t_plain
+            rec["library_ms"] += t_lib
+            print(line + f"; {'; '.join(parts)}; the four {t_four:.4f}"
+                  f" ms, plain {t_plain:.4f} ms, library "
+                  f"(F.batch_norm + relu, fwd + bwd) {t_lib:.4f} ms | {card}",
+                  flush=True)
+            del xl, rl, w_, b_
+        torch.cuda.empty_cache()
+    print(f"[bn]      phase 3b wall {time.time() - t0:.1f} s | {card}",
+          flush=True)
+    return rec
+
+
 def v1_phase(fused_mod, cfg, dev):
     """The v1 entry point (the same kernels) at two flagship shapes, batch
     32: one launch each with the count from 0 — its run — then held
@@ -894,7 +1164,7 @@ def identical(z, zx, what):
 
 def train_phase(cfg_path, cfg, fused_mod, card, dev):
     """Phase 7: cli.train at the flagship width, its checkpoint, serving
-    from it, the step's time, memory and profile."""
+    from it, the step's time, memory, train-BN launches and profile."""
     from uresnet_tpu_torch import generate_file, load_config
     from uresnet_tpu_torch.cli import infer, train
     from uresnet_tpu_torch.engine.trainer import Trainer
@@ -988,20 +1258,30 @@ def train_phase(cfg_path, cfg, fused_mod, card, dev):
 
     B = cfg.data.batch_size
     torch.cuda.synchronize()
+    # the earlier phases' cached blocks go back to the card first, as
+    # phase 9 does before its steps: held, they leave the allocator too
+    # little room for the step's, and its frees and mallocs stall it
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    t_step = time_ms(step, reps=10, warmup=3)
+    bn_zero()
+    # steps back to back, as a training loop (and the bench tool) runs
+    # them: the host queues each while the card runs the one before
+    t_step = time_ms(step, reps=5, warmup=3, inner=5)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     loss = float(step()["loss"])
     if not np.isfinite(loss):
         raise AssertionError(f"non-finite loss {loss} in the timed steps")
+    launches = bn_main_path(state[0].model, 3 + 5 * 5 + 1,
+                            f"B={B} {S}^2 train_step_light", card)
     print(f"[train]   B={B} {S}^2 bf16 train_step_light (sparse batch, densify "
-          f"on device): {t_step:.2f} ms/step = {B / t_step * 1e3:.1f} img/s, "
-          f"peak memory {peak:.3f} GiB | {card}", flush=True)
+          f"on device; 5 steps queued): {t_step:.2f} ms/step = "
+          f"{B / t_step * 1e3:.1f} img/s, peak memory {peak:.3f} GiB | "
+          f"{card}", flush=True)
     layer_times(tr, state[0], batch, card)
     profile_forwards({"train step": step}, None,
                      os.path.join(WORK, "profile.txt"), card, unit="step",
                      append=True)
-    return t_step, peak
+    return t_step, peak, launches
 
 
 def layer_times(tr, ts, batch, card, reps=5, tag="train"):
@@ -1435,9 +1715,10 @@ def vol_train(cfg_path, fused_mod, card, dev):
 
 def vol_step(cfg_path, ckpt, overrides, B, remat, card, dev):
     """Phase 9c at one (batch, remat): train_step_light from the phase's
-    checkpoint, timed by CUDA events (median of 5), its peak memory and its
-    layers; at batch 1 also the train forward's logits (f32, the f32
-    head's) and a profile of 3 steps."""
+    checkpoint, timed by CUDA events (median of 5), its peak memory, its
+    train-BN launches (without remat) and its layers; at batch 1 also the
+    train forward's logits (f32, the f32 head's) and a profile of 3 steps.
+    Returns (ms, peak GiB, launches)."""
     from uresnet_tpu_torch import load_config
     from uresnet_tpu_torch.engine.trainer import Trainer
 
@@ -1472,11 +1753,15 @@ def vol_step(cfg_path, ckpt, overrides, B, remat, card, dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    bn_zero()
     t_step = time_ms(step, reps=5, warmup=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     loss = float(step()["loss"])
     if not np.isfinite(loss):
         raise AssertionError(f"non-finite loss {loss} at batch {B}")
+    # remat reruns the forward's kernels in the backward
+    launches = (0 if remat else bn_main_path(
+        state[0].model, 2 + 5 + 1, f"B={B} {S}^3 train_step_light", card))
     print(f"[3d]      B={B} remat={remat} {S}^3 bf16 train_step_light (sparse "
           f"batch, densify on device): {t_step:.2f} ms/step = "
           f"{B / t_step * 1e3:.3f} vol/s, peak memory {peak:.3f} GiB | {card}",
@@ -1488,7 +1773,7 @@ def vol_step(cfg_path, ckpt, overrides, B, remat, card, dev):
                          append=True, top=12)
     del state, batch, btr
     torch.cuda.empty_cache()
-    return t_step, peak
+    return t_step, peak, launches
 
 
 def vol_ana(cfg_path, ckpt, fused_mod, card, dev):
@@ -1671,7 +1956,8 @@ def vol_head(cfg, card, dev):
 
 def vol_phase(fused_mod, card, dev):
     """Phase 9: BASELINE config 4 (the 3D U-ResNet at 192^3) — card vs CPU,
-    training, train step times and memory, serving and analysis."""
+    training, train step times and memory, serving and analysis. Returns
+    the train-BN launches counted in its steps without remat."""
     t0 = time.time()
     from uresnet_tpu_torch import load_config
 
@@ -1681,11 +1967,13 @@ def vol_phase(fused_mod, card, dev):
     layout_line(load_config(cfg_path), "3d")
     vol_card_vs_cpu(load_config(cfg_path), card, dev)
     ckpt, overrides = vol_train(cfg_path, fused_mod, card, dev)
+    launches = 0
     for B, remat in VOL_BATCHES:
-        vol_step(cfg_path, ckpt, overrides, B, remat, card, dev)
+        launches += vol_step(cfg_path, ckpt, overrides, B, remat, card, dev)[2]
     vol_head(load_config(cfg_path), card, dev)
     vol_ana(cfg_path, ckpt, fused_mod, card, dev)
     print(f"[3d]      phase 9 wall {time.time() - t0:.1f} s | {card}", flush=True)
+    return launches
 
 
 def dense_batches(cfg, events, tr, n_batches):
@@ -3256,6 +3544,8 @@ def main():
     f32_rec = f32_phase(fused_mod, fold, serve32, cfg, dev, card, f32_worst)
     tail_rec = ragged_phase(fused_mod, cfg, dev, card)
     v1_rec = v1_phase(fused_mod, cfg, dev)
+    # 3b. train BN's kernels
+    bn_rec = bn_phase(dev, card)
     if KERNELS_ONLY:
         return
 
@@ -3350,14 +3640,15 @@ def main():
                      os.path.join(WORK, "profile.txt"), card)
 
     # 7. the training path; 7b. the f32 weight gradient on the card
-    t_step7, _ = train_phase(cfg_path, cfg, fused_mod, card, dev)
+    t_step7, _, bn_rec["launches"] = train_phase(cfg_path, cfg, fused_mod,
+                                                 card, dev)
     dw_phase(dev)
 
     # 8. the analysis surface on phase 4's checkpoint and events
     ana_phase(cfg_path, cfg, ckpt, events, fused_mod, card, dev)
 
     # 9. BASELINE config 4: the 3D U-ResNet at 192^3, no fused launch
-    vol_phase(fused_mod, card, dev)
+    bn_rec["launches"] += vol_phase(fused_mod, card, dev)
 
     # 10. the serving artifact and the checkpoint lifecycle
     artifact_phase(cfg_path, cfg, events, fused_mod, card, dev, t_auto)
@@ -3395,7 +3686,11 @@ def main():
              replaces="uresnet_tpu/ops/pallas/conv2d.py:130",
              source=f"{src}, {src32}", **tail_rec),
         dict(name="fused_conv3x3_bn_relu",
-             replaces="uresnet_tpu/ops/pallas/conv2d.py:182", source=src, **v1_rec)]
+             replaces="uresnet_tpu/ops/pallas/conv2d.py:182", source=src, **v1_rec),
+        dict(name="train BN: stats, apply, grad_reduce, grad_input (bf16, "
+                  "the three BN_CASES)",
+             replaces="none (XLA-generated train BN, uresnet_tpu/ops/norm.py)",
+             source="uresnet_tpu_torch/csrc/bn_train.cu", **bn_rec)]
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": k["launches"],

@@ -117,7 +117,10 @@ def _bn_inputs():
 
 def _bn_run(x, r, params, state, group=None, phases=1):
     """y, new state and the gradients of sum(y * r) w.r.t. x, scale, bias;
-    ``phases``: x packed, (..., phases * C) for the (C,) params."""
+    ``phases``: x packed, (..., phases * C) for the (C,) params. Also the
+    all-reduces the forward and the backward issued."""
+    import torch.distributed as dist
+
     from uresnet_tpu_torch.ops.norm import batch_norm_train
 
     C = x.shape[-1] // phases
@@ -125,14 +128,27 @@ def _bn_run(x, r, params, state, group=None, phases=1):
     state = {k: v[:C] for k, v in state.items()}
     xt = torch.tensor(x, requires_grad=True)
     pt = {k: torch.tensor(v, requires_grad=True) for k, v in params.items()}
-    y, new = batch_norm_train(xt, pt, {k: torch.tensor(v) for k, v in
-                                       state.items()}, group=group,
-                              phases=phases)
-    gx, gs, gb = torch.autograd.grad((y * torch.tensor(r)).sum(),
-                                     [xt, pt["scale"], pt["bias"]])
+    calls = []
+    all_reduce = dist.all_reduce
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return all_reduce(*a, **kw)
+
+    dist.all_reduce = counted
+    try:
+        y, new = batch_norm_train(xt, pt, {k: torch.tensor(v) for k, v in
+                                           state.items()}, group=group,
+                                  phases=phases)
+        n_forward = len(calls)
+        gx, gs, gb = torch.autograd.grad((y * torch.tensor(r)).sum(),
+                                         [xt, pt["scale"], pt["bias"]])
+    finally:
+        dist.all_reduce = all_reduce
     return {"y": y.detach().numpy(), "mean": new["mean"].numpy(),
             "var": new["var"].numpy(), "dx": gx.numpy(), "dscale": gs.numpy(),
-            "dbias": gb.numpy()}
+            "dbias": gb.numpy(), "allreduce_forward": n_forward,
+            "allreduce_backward": len(calls) - n_forward}
 
 
 # -- the worker (one rank) ------------------------------------------------------
@@ -430,7 +446,8 @@ def test_two_process_batch_norm_train(dist_run):
     """A two-rank batch_norm_train, forward and backward, equals one
     process on the concatenated batch: each rank's y and dx are its rows,
     the running stats are equal on both ranks and to one process's, and
-    the scale and bias gradients sum to one process's."""
+    the scale and bias gradients sum to one process's. Each rank issues
+    one all-reduce forward and one backward."""
     _check_bn(dist_run, "bn", 1)
 
 
@@ -471,6 +488,12 @@ def _check_bn(dist_run, name, phases):
     for k in ("dscale", "dbias"):
         np.testing.assert_allclose(got[0][k] + got[1][k], want[k], rtol=1e-5,
                                    atol=1e-5, err_msg=k)
+    # one SUM all-reduce of the statistics forward, one of their gradients
+    # backward, on each rank; none in one process
+    for g in got:
+        assert (int(g["allreduce_forward"]), int(g["allreduce_backward"])) \
+            == (1, 1)
+    assert (want["allreduce_forward"], want["allreduce_backward"]) == (0, 0)
 
 
 def test_two_process_packed_step_matches_one_process(dist_run):

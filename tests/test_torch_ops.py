@@ -1,6 +1,7 @@
 """Port ops vs the JAX package on the CPU: conv / conv_transpose / eval and
-train BN, conv gradients (f32, and the bf16 path's f32 weight gradient),
-the fused conv's plain version vs both Pallas kernels (interpret mode), the
+train BN (and train BN's analytic backward vs autograd in float64, its
+kernels' launch geometry and operand checks), conv gradients (f32, and
+the bf16 path's f32 weight gradient), the fused conv's plain version vs both Pallas kernels (interpret mode), the
 kernel eligibility rule, the wrapper's input checks, and the kernel build.
 
 Inputs are made with numpy from a seed and handed to both packages; f32
@@ -21,6 +22,7 @@ from uresnet_tpu.ops.pallas.conv2d import fused_conv3x3_bn_relu_v2 as pallas_v2
 from uresnet_tpu_torch.models.fold import fused_eligible
 from uresnet_tpu_torch.ops import conv as tconv
 from uresnet_tpu_torch.ops import norm as tnorm
+from uresnet_tpu_torch.ops.cuda import bn_train as tbn
 from uresnet_tpu_torch.ops.cuda import build
 from uresnet_tpu_torch.ops.cuda import conv2d as tfused
 from uresnet_tpu_torch.utils.dtypes import canonical_dtype
@@ -128,6 +130,134 @@ def test_batch_norm_train_matches_jax(rng):
     # for each channel (y is normalized), so dL/dx of sum(y) vanishes
     got.sum().backward()
     np.testing.assert_allclose(xt.grad.numpy(), 0, atol=1e-4)
+
+
+def _bn_unfused(x, scale, bias, residual, relu, phases, eps):
+    """Train BN as autograd runs it unfused: the statistics of the packed
+    view (mean, square().mean), the affine, + residual, ReLU."""
+    C = x.shape[-1] // phases
+    xs = x.reshape(x.shape[:-1] + (phases, C))
+    dims = tuple(range(xs.dim() - 1))
+    mean = xs.mean(dims)
+    var = xs.square().mean(dims) - mean.square()
+    g = torch.rsqrt(var + eps) * scale
+    y = (xs * g + (bias - mean * g)).reshape(x.shape)
+    if residual is not None:
+        y = y + residual
+    return (torch.relu(y) if relu else y), mean.detach(), var.detach()
+
+
+@pytest.mark.parametrize("phases", [1, 4, 8])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("relu", [False, True])
+def test_batch_norm_train_analytic_backward_matches_autograd(rng, relu,
+                                                            residual, phases):
+    """float64, no group: batch_norm_train (the plain versions of its four
+    kernels, the analytic input gradient in one pass) equals autograd of
+    the unfused formula in y and in the gradients of x, scale, bias and
+    the residual; the running stats equal the unfused form's; the plain
+    versions count no launch."""
+    C, eps, momentum = 3, 1e-3, 0.99
+    x = rng.standard_normal((2, 5, 4, phases * C)) * 2 + 0.5
+    r = rng.standard_normal(x.shape) if residual else None
+    p = {"scale": rng.uniform(.5, 2, C), "bias": rng.standard_normal(C)}
+    s = {"mean": rng.standard_normal(C), "var": rng.uniform(.2, 3, C)}
+    dy = T(rng.standard_normal(x.shape))
+    before = [getattr(tbn, f"launches_bn_train_{k}")
+              for k in ("stats", "apply", "grad_reduce", "grad_input")]
+    runs = []
+    for fused in (True, False):
+        leaves = [T(x).requires_grad_(), T(p["scale"]).requires_grad_(),
+                  T(p["bias"]).requires_grad_()]
+        if residual:
+            leaves.append(T(r).requires_grad_())
+        res = leaves[3] if residual else None
+        if fused:
+            y, new = tnorm.batch_norm_train(
+                leaves[0], {"scale": leaves[1], "bias": leaves[2]},
+                {k: T(v) for k, v in s.items()}, momentum=momentum, eps=eps,
+                phases=phases, relu=relu, residual=res)
+        else:
+            y, mean, var = _bn_unfused(*leaves[:3], res, relu, phases, eps)
+            new = {"mean": T(s["mean"]) * momentum + mean * (1 - momentum),
+                   "var": T(s["var"]) * momentum + var * (1 - momentum)}
+        grads = torch.autograd.grad((y * dy).sum(), leaves)
+        runs.append((y.detach(), new, grads))
+    (y, new, grads), (y0, new0, grads0) = runs
+    assert y.dtype == torch.float64 and y.shape == x.shape
+    torch.testing.assert_close(y, y0, rtol=1e-12, atol=1e-12)
+    for k in ("mean", "var"):
+        torch.testing.assert_close(new[k], new0[k], rtol=1e-12, atol=1e-12)
+        assert not new[k].requires_grad
+    for name, g, g0 in zip(("x", "scale", "bias", "residual"), grads, grads0):
+        torch.testing.assert_close(g, g0, rtol=1e-10, atol=1e-10, msg=name)
+    assert before == [getattr(tbn, f"launches_bn_train_{k}")
+                      for k in ("stats", "apply", "grad_reduce", "grad_input")]
+
+
+@pytest.mark.parametrize("rows, W, C, itemsize, aligned, want", [
+    # 2D level 0: (32, 128, 256, 128) bf16, 8 phases of 16 channels
+    (32 * 128 * 256, 128, 16, 2, True, ((8, 16, 528, 1), (8, 16, 528, 1))),
+    # the deepest 2D level: (32, 16, 16, 512) bf16
+    (32 * 16 * 16, 512, 512, 2, True, ((8, 64, 32, 1), (8, 64, 528, 1))),
+    # f32 rows of 3 channels, and an operand off 16 bytes: one element
+    (37, 3, 3, 4, True, ((1, 3, 1, 1), (1, 3, 1, 1))),
+    (37, 128, 16, 2, False, ((1, 128, 19, 1), (1, 128, 19, 1))),
+    # rows wider than a block: two column tiles
+    (1000, 4096, 2048, 2, True, ((8, 256, 4, 2), (8, 256, 264, 2))),
+])
+def test_bn_train_geometry(rows, W, C, itemsize, aligned, want):
+    """The launch geometry from the activation alone (132 SMs): 16-byte
+    vectors where W and the pointers allow, a block's tile of whole rows,
+    a reduction's partial sums within 32 Ki values."""
+    got = tuple(tbn.geometry(rows, W, C, itemsize, aligned, 132, reduce)
+                for reduce in (True, False))
+    assert got == want
+    for vec, tx, gx, gy in got:
+        assert tx * (tbn.THREADS // tx) <= tbn.THREADS
+        assert vec * tx * gy >= W and W % vec == 0
+    vec, tx, gx, gy = got[0]
+    assert gx * 2 * (C if gy == 1 else W) <= 32768
+
+
+def test_bn_train_rejects_operands_the_kernels_do_not_take():
+    x = torch.zeros(4, 8)
+    v = torch.zeros(4)
+    tbn._check(x, 4, (torch.zeros(4, 8),), [(v, 4)])
+    for args, err in [((torch.zeros(4, 8, dtype=torch.int32), 4), TypeError),
+                      ((torch.zeros(4, 8, 1), 4), ValueError),
+                      ((x, 3), ValueError),
+                      ((x, 4, (torch.zeros(4, 8).t(),)), ValueError),
+                      ((x, 4, (torch.zeros(4, 8, dtype=torch.float64),)),
+                       ValueError),
+                      ((x, 4, (), [(v.double(), 4)]), ValueError),
+                      ((x, 4, (), [(v, 8)]), ValueError)]:
+        with pytest.raises(err):
+            tbn._check(*args)
+
+
+def test_bn_train_ops_pass_opcheck(rng):
+    """The four ops' registrations (schema, fake kernels, no aliasing)
+    hold on the CPU."""
+    C, rows, W = 4, 6, 8
+    x = T(rng.standard_normal((rows, W)).astype(np.float32))
+    d = T(rng.standard_normal((rows, W)).astype(np.float32))
+    vec = [T(rng.uniform(.5, 2, C).astype(np.float32)) for _ in range(4)]
+    sums = T(rng.standard_normal(2 * C).astype(np.float32))
+    count = torch.tensor([12.0])
+    for op, args in [
+            (torch.ops.uresnet_tpu_torch.bn_train_stats,
+             (x, C, 1e-3, vec[0], vec[1], 0.99)),
+            (torch.ops.uresnet_tpu_torch.bn_train_apply,
+             (x, d, *vec, True)),
+            (torch.ops.uresnet_tpu_torch.bn_train_grad_reduce,
+             (d, x, x, *vec, True)),
+            (torch.ops.uresnet_tpu_torch.bn_train_grad_input,
+             (d, x, None, *vec, sums, count, True, True)),
+            (torch.ops.uresnet_tpu_torch.bn_train_grad_input,
+             (d, x, None, *vec, sums, count, False, False))]:
+        torch.library.opcheck(op, args, test_utils=(
+            "test_schema", "test_faketensor"))
 
 
 def _conv_case(rng, kind, stride, size):

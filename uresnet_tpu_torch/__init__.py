@@ -23,14 +23,16 @@ Ported so far:
   sparse batches staged by ``data/prefetch.py`` and densified on the device
   (``data/device_pipeline.py``, ``engine/augment.py``), the train-mode
   forward with TF1 BatchNorm and activation checkpointing
-  (``models/uresnet.py``, ``ops/norm.py``), f32 weight gradients of the
+  (``models/uresnet.py``, ``ops/norm.py``; train BN with its residual add
+  and ReLU as hand-written CUDA kernels, ``csrc/bn_train.cu``,
+  ``ops/cuda/bn_train.py``), f32 weight gradients of the
   bf16 convs (``ops/conv.py``), the weighted cross-entropy and metrics
   (``engine/losses.py``, ``engine/metrics.py``), Adam/RMSProp
   (``engine/optim.py``), and checkpoints of the whole train state in the
   JAX layout (``engine/checkpoint.py``, ``models/convert.py``);
 * 3D models (``model.dims: 3``, BASELINE config 4) on both paths: every
-  conv op is N-D (``ops/conv.py``); no hand kernel runs in 3D, the fused
-  conv being 2D only.
+  conv op is N-D (``ops/conv.py``); in 3D the only hand kernels are train
+  BN's, the fused conv being 2D only.
 """
 
 __version__ = "0.1.0"

@@ -129,7 +129,7 @@ class Conv(nn.Module):
             self.register_parameter(k, nn.Parameter(v))
 
     def params(self) -> dict:
-        return dict(self.named_parameters())
+        return dict(self._parameters)
 
 
 class BatchNorm(nn.Module):
@@ -144,15 +144,20 @@ class BatchNorm(nn.Module):
         for k, v in state.items():
             self.register_buffer(k, v)
 
-    def forward(self, x, ctx: BlockCtx, phases: int = 1):
-        """``phases``: ``x`` is space-to-depth packed (ops/norm.py)."""
-        params, state = dict(self.named_parameters()), dict(self.named_buffers())
+    def forward(self, x, ctx: BlockCtx, phases: int = 1, *,
+                relu: bool = False, residual=None):
+        """relu?(BN(x) [+ residual]); ``phases``: ``x`` is space-to-depth
+        packed (ops/norm.py)."""
+        params, state = dict(self._parameters), dict(self._buffers)
         if ctx.train:
             return batch_norm_train(x, params, state, momentum=ctx.bn_momentum,
                                     eps=ctx.bn_eps, group=ctx.group,
-                                    phases=phases)
-        return batch_norm(x, params, state, eps=ctx.bn_eps,
-                          phases=phases), state
+                                    phases=phases, relu=relu,
+                                    residual=residual)
+        y = batch_norm(x, params, state, eps=ctx.bn_eps, phases=phases)
+        if residual is not None:
+            y = y + residual.to(y.dtype)
+        return (torch.relu(y) if relu else y), state
 
 
 class ConvBN(nn.Module):
@@ -167,14 +172,15 @@ class ConvBN(nn.Module):
         self.bn = BatchNorm(out_ch, param_dtype=param_dtype, device=device)
 
     def forward(self, x, ctx: BlockCtx, *, stride=1, relu=True,
-                transpose=False):
+                transpose=False, residual=None):
+        """relu?(BN(conv(x)) [+ residual])."""
         x = ctx.full(x, self.conv.w.shape[-2])
         if transpose:
             y = ctx.conv_t(x, self.conv.params(), stride=stride)
         else:
             y = ctx.conv(x, self.conv.params(), stride=stride)
-        y, bn_state = self.bn(y, ctx)
-        return (torch.relu(y) if relu else y), {"bn": bn_state}
+        y, bn_state = self.bn(y, ctx, relu=relu, residual=residual)
+        return y, {"bn": bn_state}
 
 
 class ResBlock(nn.Module):
@@ -192,6 +198,6 @@ class ResBlock(nn.Module):
     def forward(self, x, ctx: BlockCtx):
         xf = ctx.full(x, self.cb1.conv.w.shape[-2])  # cb1's and proj's input
         y, s1 = self.cb1(xf, ctx)
-        y, s2 = self.cb2(y, ctx, relu=False)
         shortcut = x if self.proj is None else ctx.conv(xf, self.proj.params())
-        return torch.relu(y + shortcut.to(y.dtype)), {"cb1": s1, "cb2": s2}
+        y, s2 = self.cb2(y, ctx, residual=shortcut)
+        return y, {"cb1": s1, "cb2": s2}

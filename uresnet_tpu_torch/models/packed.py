@@ -96,11 +96,11 @@ def _pack_same_w(w, dims, in_splits, hpack, splits_hpacked):
 
 
 def _conv_bn_packed(ctx, unit, x, *, relu=True, mode="same", in_splits=None,
-                    hpack=False, splits_hpacked=False):
-    """Packed conv + BN (+ ReLU) of a ``ConvBN`` unit. mode: 'same' |
-    'down' | 'up' | 'down_h' (H-packed in and out) | 'up_h' (unpacked in,
-    H-packed out). ``hpack`` (2D): input and output carry an extra H
-    phase."""
+                    hpack=False, splits_hpacked=False, residual=None):
+    """Packed conv + BN (+ residual) (+ ReLU) of a ``ConvBN`` unit. mode:
+    'same' | 'down' | 'up' | 'down_h' (H-packed in and out) | 'up_h'
+    (unpacked in, H-packed out). ``hpack`` (2D): input and output carry an
+    extra H phase."""
     w = unit.conv.w
     dims = ctx.dims
     P = 2 ** dims
@@ -124,20 +124,20 @@ def _conv_bn_packed(ctx, unit, x, *, relu=True, mode="same", in_splits=None,
         phases = 2 * P
     else:
         raise ValueError(mode)
-    y, s = unit.bn(y, ctx, phases=phases)
-    return (torch.relu(y) if relu else y), {"bn": s}
+    y, s = unit.bn(y, ctx, phases=phases, relu=relu, residual=residual)
+    return y, {"bn": s}
 
 
 def _resblock_packed(ctx, unit, x, *, in_splits=None, hpack=False,
                      splits_hpacked=False):
     y, s1 = _conv_bn_packed(ctx, unit.cb1, x, in_splits=in_splits,
                             hpack=hpack, splits_hpacked=splits_hpacked)
-    y, s2 = _conv_bn_packed(ctx, unit.cb2, y, relu=False, hpack=hpack)
     shortcut = x
     if unit.proj is not None:
         shortcut = ctx.conv_packed(x, _pack_same_w(
             unit.proj.w, ctx.dims, in_splits, hpack, splits_hpacked))
-    return torch.relu(y + shortcut.to(y.dtype)), {"cb1": s1, "cb2": s2}
+    y, s2 = _conv_bn_packed(ctx, unit.cb2, y, hpack=hpack, residual=shortcut)
+    return y, {"cb1": s1, "cb2": s2}
 
 
 def packed_forward(model, x: torch.Tensor, ctx, *, level, block,
@@ -243,8 +243,8 @@ def packed_forward(model, x: torch.Tensor, ctx, *, level, block,
                     u = unit(name)
                     y = ctx.conv_packed(hh, pack_weight_up(u.conv.w, dims),
                                         padding=(1, 0))
-                    y, s = u.bn(depth_to_space(y, dims=dims), ctx)
-                    return torch.relu(y), {"bn": s}
+                    y, s = u.bn(depth_to_space(y, dims=dims), ctx, relu=True)
+                    return y, {"bn": s}
 
                 h, sub[name] = block(up)(h)
                 h = torch.cat([h, skip.to(h.dtype)], dim=-1)
