@@ -1,6 +1,6 @@
 """The numbers that decide ``correct``: the program's outputs against the
-plain reference's (harness/reference.py), each held to its limit
-(limits/<workload>.json).
+plain reference's (the architecture's, archs/<arch>.py), each held to its
+limit (limits/<workload>.json).
 
 A leaf's gap is the gap between the program's norm and the reference's,
 over the larger of the reference leaf's norm and the median leaf's.
@@ -101,9 +101,11 @@ def train_numbers(prog: dict, ref: dict) -> Dict[str, float]:
 
 
 def ana_numbers(prog: List[dict], ref: List[dict],
-                dense: List[dict]) -> Dict[str, float]:
+                views: List[dict]) -> Dict[str, float]:
+    """``views``: the reference's view of each batch, of which this reads
+    ``valid``, ``point_label`` and ``origin``."""
     gap, exact = 0.0, 0
-    for p, r, d in zip(prog, ref, dense):
+    for p, r, d in zip(prog, ref, views):
         ps = np.asarray(p["pscores"], np.float64)
         rs = np.asarray(r["pscores"], np.float64)
         for row in range(len(ps)):
@@ -115,9 +117,8 @@ def ana_numbers(prog: List[dict], ref: List[dict],
         # what the densify decides alone, and the right calls among the
         # charged pixels as the program's own scores at the points make
         # them (each charged pixel is one point)
-        label = np.take_along_axis(d["label"].reshape(len(ps), -1),
-                                   d["flat"], 1)
-        right = float(((ps.argmax(-1) == label) & d["valid"]).sum())
+        right = float(((ps.argmax(-1) == d["point_label"])
+                       & d["valid"]).sum())
         conf = np.asarray(p["conf"], np.float64).sum(0)
         exact += int(np.sum(conf.sum(0) != r["conf"].sum(0)))
         exact += int(float(np.sum(p["correct_nonzero"])) != right)

@@ -22,6 +22,10 @@ uses, and then measures:
 ``--trace 1`` runs, in place of the timed window, ``trace_steps`` steps
 or batches untraced (the time base of the ``mfu.*`` readers) and as many
 again under ``torch.profiler``.
+
+What the harness knows of the model (its leaves, its plain reference and
+the reference's view of a batch, its FLOPs) it asks of the cell's
+architecture module, ``cell.arch`` (archs/<arch>.py).
 """
 
 from __future__ import annotations
@@ -33,13 +37,13 @@ import random
 import statistics
 import sys
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from harness import checks, events, reference, spec, trace, weights
+from harness import checks, events, quant, spec, trace, weights
 
 
 # intra-op threads of a run's process, whose closed loop stages each batch
@@ -89,7 +93,7 @@ class Program:
         self.cfg = port_config(cell.config)
         self.trainer = Trainer(self.cfg, device=device)
         ts = self.trainer.init_state()
-        params, stats = weights.split(leaves)
+        params, stats = weights.split(cell, leaves)
         zeros = unflatten_tree({k: torch.zeros_like(v)
                                 for k, v in params.items()})
         opt, key = load_jax_train_state(ts.model, {
@@ -111,6 +115,9 @@ class Traced:
     model: dict
     itemsize: int           # bytes of the compute dtype
     launches: int           # the fused conv's launch counter over the window
+    # the architecture's useful FLOPs of the steps that plain_s timed
+    # (None: not counted)
+    flops: Optional[int] = None
 
 
 def _timed(step: Callable, seconds: float, device) -> tuple:
@@ -135,15 +142,17 @@ def _plain(step: Callable, n: int, device) -> float:
     return time.perf_counter() - t0
 
 
-def _traced(step: Callable, n: int, device, shapes: bool):
+def _traced(step: Callable, n: int, device, shapes: bool, turn: List[int]):
     """``n`` steps under the profiler, first ``n`` untraced, twice: (the
     trace, the second untraced pass's seconds, the fused conv's launches
-    in the trace). The first pass warms the loop: right after set-up, 40
-    3D analysis batches took 1.54-2.19 s in it. ``shapes``: record the
-    ops' operand shapes."""
+    in the trace, the turns that pass ran). The first pass warms the loop:
+    right after set-up, 40 3D analysis batches took 1.54-2.19 s in it.
+    ``shapes``: record the ops' operand shapes. ``turn``: the loop's count
+    of steps, which ``step`` advances."""
     from torch.profiler import ProfilerActivity, profile
 
     _plain(step, n, device)
+    timed = range(turn[0], turn[0] + n)
     plain_s = _plain(step, n, device)
     before = _launches()
     acts = [ProfilerActivity.CPU]
@@ -158,7 +167,13 @@ def _traced(step: Callable, n: int, device, shapes: bool):
     got = trace.read(prof)
     log(f"traced window {got.window_s!r} s, the same {n} steps untraced "
         f"{plain_s!r} s")
-    return got, plain_s, launches
+    return got, plain_s, launches, timed
+
+
+def _flops(cell: spec.Cell, pool: List[dict], turns, train: bool) -> int:
+    """The architecture's useful FLOPs of the pool batches of ``turns``."""
+    return sum(cell.arch.batch_flops(cell.config, pool[t % len(pool)],
+                                     train=train) for t in turns)
 
 
 def _launches() -> int:
@@ -197,12 +212,9 @@ def _pool(cell: spec.Cell, seed: int) -> List[dict]:
                             max_points=d["max_points"])
 
 
-def _densify(cell: spec.Cell, batch: dict, weight_mode: str) -> dict:
-    d = cell.data
-    return reference.densify(batch, size=d["image_size"],
-                             scale=d["normalize_scale"],
-                             clip=d["normalize_clip"], weight_mode=weight_mode,
-                             num_class=cell.model["num_class"])
+def _view(cell: spec.Cell, batch: dict, weight_mode: str) -> dict:
+    """The plain reference's view of one pool batch."""
+    return cell.arch.view(cell.config, batch, weight_mode)
 
 
 def _free(device) -> int:
@@ -224,8 +236,8 @@ def run_train(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     mix, m = cell.mix, cell.model
     B = cell.data["batch_size"]
     pool = _pool(cell, seed)
-    leaves = weights.make(m, seed, device, serve=False)
-    params0, _ = weights.split(leaves)
+    leaves = weights.make(cell, seed, device, serve=False)
+    params0, _ = weights.split(cell, leaves)
     prog = Program(cell, leaves, device)
     tr = prog.trainer
     turn = [0]
@@ -257,11 +269,11 @@ def run_train(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     res = {"setup_s": time.perf_counter() - t0}
     log(f"setup_s {res['setup_s']!r}")
     if traced:
-        got, plain_s, launches = _traced(step, mix["trace_steps"], device,
-                                         shapes=False)
+        got, plain_s, launches, timed = _traced(step, mix["trace_steps"],
+                                                device, False, turn)
         res["traced"] = Traced("train", got, plain_s, mix["trace_steps"], B,
                                cell.data["image_size"], m, _itemsize(m),
-                               launches)
+                               launches, _flops(cell, pool, timed, True))
         res["attempted"] = mix["trace_steps"]
     else:
         n, window = _timed(step, seconds, device)
@@ -270,10 +282,10 @@ def run_train(cell: spec.Cell, seed: int, seconds: float, traced: bool,
         log(f"window: {n} steps of {B} in {window!r} s")
     del prog, tr, step
     res["memory_peak_bytes"] = _free(device)
-    dense = [_densify(cell, pool[i], cell.data["weight_mode"])
+    views = [_view(cell, pool[i], cell.data["weight_mode"])
              for i in range(mix["check_steps"])]
     t = time.perf_counter()
-    ref = train_reference(cell, params0, dense, device)
+    ref = train_reference(cell, params0, views, device)
     log(f"reference: {mix['check_steps']} steps in "
         f"{time.perf_counter() - t!r} s; losses {out['losses']} against "
         f"{ref['losses']}")
@@ -283,15 +295,15 @@ def run_train(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     return res
 
 
-def train_reference(cell: spec.Cell, params0, dense: List[dict],
+def train_reference(cell: spec.Cell, params0, views: List[dict],
                     device) -> dict:
-    """The reference's steps from ``params0`` over the densified batches,
+    """The reference's steps from ``params0`` over the batches' views,
     with the yardstick of the first step's logits: the same forward with
     its operands rounded to bfloat16."""
-    m = cell.model
-    ref = reference.train_steps(m, cell.optim, params0, dense, device=device)
-    ref["yard"] = reference.train_logits(m, params0, dense[0], device=device,
-                                         quant=reference.bf16)
+    arch, conf = cell.arch, cell.config
+    ref = arch.train_steps(conf, params0, views, device=device)
+    ref["yard"] = arch.train_logits(conf, params0, views[0], device=device,
+                                    quant=quant.bf16)
     return ref
 
 
@@ -328,10 +340,10 @@ def run_ana(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     pool = _pool(cell, seed)
     for batch in pool:
         batch["row_valid"] = np.ones((B,), np.float32)
-    leaves = weights.make(m, seed, device, serve=True)
-    weights.calibrate(m, leaves, _densify(cell, pool[0], "ones")["data"],
-                      device)
-    params, stats = weights.split(leaves)
+    leaves = weights.make(cell, seed, device, serve=True)
+    cell.arch.calibrate(cell.config, leaves, _view(cell, pool[0], "ones"),
+                        device=device)
+    params, stats = weights.split(cell, leaves)
     prog = Program(cell, leaves, device)
     tr, cfg = prog.trainer, prog.cfg
     logits_fn = build_logits_fn(cfg, prog.state.model)
@@ -360,11 +372,11 @@ def run_ana(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     res = {"setup_s": time.perf_counter() - t0}
     log(f"setup_s {res['setup_s']!r}")
     if traced:
-        got, plain_s, launches = _traced(serve, mix["trace_steps"], device,
-                                         shapes=True)
+        got, plain_s, launches, timed = _traced(serve, mix["trace_steps"],
+                                                device, True, turn)
         res["traced"] = Traced("ana", got, plain_s, mix["trace_steps"], B,
                                cell.data["image_size"], m, _itemsize(m),
-                               launches)
+                               launches, _flops(cell, pool, timed, False))
         res["attempted"] = mix["trace_steps"]
     else:
         n, window = _timed(serve, seconds, device)
@@ -384,12 +396,12 @@ def run_ana(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     del prog, tr, logits_fn, serve
     res["memory_peak_bytes"] = _free(device)
     t = time.perf_counter()
-    dense = [_densify(cell, pool[i], "ones") for i, _ in kept]
-    ref = [reference.analyse(m, params, stats, d, device=device)
-           for d in dense]
+    views = [_view(cell, pool[i], "ones") for i, _ in kept]
+    ref = [cell.arch.analyse(cell.config, params, stats, v, device=device)
+           for v in views]
     log(f"reference: {len(kept)} batches (pool {[i for i, _ in kept]}) in "
         f"{time.perf_counter() - t!r} s")
-    res["numbers"] = checks.ana_numbers([h for _, h in kept], ref, dense)
+    res["numbers"] = checks.ana_numbers([h for _, h in kept], ref, views)
     return res
 
 

@@ -1,17 +1,21 @@
 """A cell as ``BENCHMARK.json`` names it, with its files found by name.
 
     configs/<config>.json   the configuration as it is run (the program's
-                            model, data, optim and train sections) and its
-                            source; the plain reference (harness/
-                            reference.py) reads the same file
+                            model, data, optim and train sections), its
+                            source, and its architecture (``"arch"``); the
+                            plain reference reads the same file
+    archs/<arch>.py         what the harness knows of an architecture: its
+                            leaves, its plain reference's view of a batch,
+                            calibration, steps and analysis, and its FLOPs
+                            (the hooks are listed in archs/uresnet.py)
     mixes/<traffic>.json    the traffic mix: which loop drives the program
                             and its parameters
     limits/<workload>.json  the limit of each number that decides correct
     metrics/<metric>.py     the reader of a per-layer metric, with any
                             data file of its own beside it
 
-Later cells and metrics are new files and new entries; nothing here names
-one.
+Later cells, metrics and architectures are new files and new entries;
+nothing here names one.
 """
 
 from __future__ import annotations
@@ -20,10 +24,12 @@ import dataclasses
 import importlib.util
 import json
 import os
+from types import ModuleType
 from typing import Dict, List
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(HERE)
+ARCHS = os.path.join(HERE, "archs")
 
 
 @dataclasses.dataclass
@@ -31,6 +37,7 @@ class Cell:
     name: str
     chips: int
     config: dict          # the whole configuration file
+    arch: ModuleType      # archs/<config's arch>.py
     mix: dict
     limits: Dict[str, float]
     end_to_end: List[dict]
@@ -69,21 +76,35 @@ def cell(name: str) -> Cell:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json: "
                        f"{sorted(work)}")
     w = work[name]
-    conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
+    path = os.path.join(
+        ROOT, {c["name"]: c for c in bench["configs"]}[w["config"]]["file"])
+    config = _json(path)
     return Cell(
-        name=name, chips=int(w["chips"]),
-        config=_json(os.path.join(ROOT, conf["file"])),
+        name=name, chips=int(w["chips"]), config=config,
+        arch=arch(config.get("arch"), path),
         mix=_json(os.path.join(HERE, "mixes", f"{w['traffic']}.json")),
         limits=_json(os.path.join(HERE, "limits", f"{name}.json")),
         end_to_end=[m for m in bench["end_to_end"] if _reports(m, name)],
         per_layer=[m for m in bench["per_layer"] if _reports(m, name)])
 
 
-def metric_reader(name: str):
-    """The ``read`` function of ``metrics/<name>.py``."""
-    path = os.path.join(HERE, "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(
-        "perfbench_metric_" + name.replace(".", "_"), path)
+def _load(path: str, name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def arch(name, config_file: str) -> ModuleType:
+    """``archs/<name>.py``, the architecture that ``config_file`` names."""
+    known = sorted(f[:-3] for f in os.listdir(ARCHS) if f.endswith(".py"))
+    if name not in known:
+        raise ValueError(f"{config_file}: \"arch\" is {name!r}, which names "
+                         f"no module of {ARCHS}: {known}")
+    return _load(os.path.join(ARCHS, f"{name}.py"), "perfbench_arch_" + name)
+
+
+def metric_reader(name: str):
+    """The ``read`` function of ``metrics/<name>.py``."""
+    return _load(os.path.join(HERE, "metrics", f"{name}.py"),
+                 "perfbench_metric_" + name.replace(".", "_")).read

@@ -6,8 +6,10 @@ scale 1 and bias 0, running mean 0 and variance 1, a zero head bias. A
 serving cell serves a model as training leaves it: BN scales in [0.5, 1.5),
 BN and head biases in [-0.2, 0.2), and running statistics equal to the
 batch statistics of the reference's own float32 forward over the pool's
-first batch (``calibrate``), so that every activation keeps its scale
-through the depth and the logits do not saturate.
+first batch (the architecture's ``calibrate``), so that every activation
+keeps its scale through the depth and the logits do not saturate. The
+leaves, their order and which are statistics are the architecture's
+(``cell.arch``, archs/<arch>.py).
 """
 
 from __future__ import annotations
@@ -15,17 +17,17 @@ from __future__ import annotations
 import math
 from typing import Dict
 
-import numpy as np
 import torch
 
-from harness import reference
+from harness import spec
 
 
-def make(m: dict, seed: int, device, *, serve: bool) -> Dict[str, torch.Tensor]:
+def make(cell: spec.Cell, seed: int, device, *,
+         serve: bool) -> Dict[str, torch.Tensor]:
     """{leaf name: float32 tensor on ``device``}: parameters and BN
     statistics, from one ``torch.rand`` of a generator on ``device``
     seeded with ``seed``."""
-    shapes = reference.leaf_shapes(m)
+    shapes = cell.arch.leaf_shapes(cell.config)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     sizes = [math.prod(s) for s in shapes.values()]
@@ -48,20 +50,9 @@ def make(m: dict, seed: int, device, *, serve: bool) -> Dict[str, torch.Tensor]:
     return out
 
 
-def split(leaves: Dict[str, torch.Tensor]):
+def split(cell: spec.Cell, leaves: Dict[str, torch.Tensor]):
     """(parameters, BN statistics)."""
-    params = {k: v for k, v in leaves.items() if not reference.is_stat(k)}
-    stats = {k: v for k, v in leaves.items() if reference.is_stat(k)}
+    stat = cell.arch.is_stat
+    params = {k: v for k, v in leaves.items() if not stat(k)}
+    stats = {k: v for k, v in leaves.items() if stat(k)}
     return params, stats
-
-
-@torch.no_grad()
-def calibrate(m: dict, leaves: Dict[str, torch.Tensor], data: np.ndarray,
-              device) -> None:
-    """Set the BN statistics of ``leaves`` to the batch statistics of the
-    float32 forward over ``data`` (B, *S, C_in)."""
-    params, stats = split(leaves)
-    with reference.true_f32():
-        reference.forward(params, stats, torch.as_tensor(data, device=device),
-                          m, mode="calibrate")
-    leaves.update(stats)

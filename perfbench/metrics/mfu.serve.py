@@ -1,13 +1,14 @@
-"""The whole analysis step's share of the card's bf16 peak, in %: one
-canonical forward's FLOPs per batch of the traced window over the
-seconds of as many batches run untraced just before it (the profiler's
-own cost left out), over 989 TFLOP/s (harness/flops.py)."""
+"""The whole analysis step's share of the card's bf16 peak, in %: the
+useful FLOPs of the batches that were run untraced just before the
+traced window (the profiler's own cost left out) over their seconds,
+over 989 TFLOP/s (harness/flops.py). The architecture counts the FLOPs
+of each batch's forward (archs/<arch>.py ``batch_flops``; the dense
+U-ResNet's: the canonical forward)."""
 
 from harness import flops
 
 
 def read(run):
-    if run.kind != "ana":
+    if run.kind != "ana" or not run.flops:
         return None
-    total = flops.forward_flops(run.model, run.size, run.batch) * run.steps
-    return 100.0 * total / run.plain_s / flops.PEAK_BF16_FLOPS
+    return 100.0 * run.flops / run.plain_s / flops.PEAK_BF16_FLOPS

@@ -7,10 +7,10 @@ in one process (the benchmark's own runs do not run this):
 For each seed, one JSON line:
   program   the numbers of a run of the cell (set-up, a window of
             ``--seconds``, the comparison with the reference);
-  control   with ``--control``: the reference computed with float8 e4m3
-            operands (harness/reference.py ``fp8``), the precision below
-            the configuration's bfloat16, put in the program's place and
-            compared as the program is;
+  control   with ``--control``: the architecture's reference computed
+            with float8 e4m3 operands (harness/quant.py ``fp8``), the
+            precision below the configuration's bfloat16, put in the
+            program's place and compared as the program is;
   fault     with ``--fault``, training cells: the numbers of a second run
             of the program with half of the batch left out of the step's
             forward and loss (harness/faults.py ``half_batch_train``).
@@ -29,43 +29,43 @@ sys.path[:0] = [HERE, os.path.dirname(HERE)]
 
 import torch  # noqa: E402
 
-from harness import (checks, faults, loops, reference, spec,  # noqa: E402
+from harness import (checks, faults, loops, quant, spec,  # noqa: E402
                      weights)
 
 
 def train_control(cell, seed, device, ref):
     """The control's numbers, and their detail, against the reference
     ``ref`` of the same seed."""
-    m = cell.model
     pool = loops._pool(cell, seed)
-    params, _ = weights.split(weights.make(m, seed, device, serve=False))
-    dense = [loops._densify(cell, pool[i], cell.data["weight_mode"])
+    params, _ = weights.split(cell, weights.make(cell, seed, device,
+                                                 serve=False))
+    views = [loops._view(cell, pool[i], cell.data["weight_mode"])
              for i in range(cell.mix["check_steps"])]
-    alt = reference.train_steps(m, cell.optim, params, dense, device=device,
-                                quant=reference.fp8)
+    alt = cell.arch.train_steps(cell.config, params, views, device=device,
+                                quant=quant.fp8)
     return checks.train_numbers(alt, ref), checks.train_detail(alt, ref)
 
 
 def ana_control(cell, seed, device):
-    m = cell.model
+    arch, conf = cell.arch, cell.config
     pool = loops._pool(cell, seed)
-    leaves = weights.make(m, seed, device, serve=True)
-    weights.calibrate(m, leaves, loops._densify(cell, pool[0], "ones")["data"],
-                      device)
-    params, stats = weights.split(leaves)
+    leaves = weights.make(cell, seed, device, serve=True)
+    arch.calibrate(conf, leaves, loops._view(cell, pool[0], "ones"),
+                   device=device)
+    params, stats = weights.split(cell, leaves)
     sample = loops._Sample(seed, cell.mix["check_batches"],
                            [int(b["npoints"].sum()) for b in pool])
-    dense = [loops._densify(cell, pool[i], "ones") for i in sorted(sample.want)]
-    ref = [reference.analyse(m, params, stats, d, device=device) for d in dense]
+    views = [loops._view(cell, pool[i], "ones") for i in sorted(sample.want)]
+    ref = [arch.analyse(conf, params, stats, v, device=device) for v in views]
     alt = []
-    for d in dense:
-        r = reference.analyse(m, params, stats, d, device=device,
-                              quant=reference.fp8)
+    for v in views:
+        r = arch.analyse(conf, params, stats, v, device=device,
+                         quant=quant.fp8)
         alt.append({"pscores": r["pscores"], "conf": r["conf"][None],
                     "correct_nonzero": r["correct_nonzero"],
                     "n_pixels": r["n_pixels"], "n_nonzero": r["n_nonzero"],
-                    "origin": d["origin"]})
-    return checks.ana_numbers(alt, ref, dense)
+                    "origin": v["origin"]})
+    return checks.ana_numbers(alt, ref, views)
 
 
 def main(argv=None) -> int:

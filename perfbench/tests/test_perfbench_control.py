@@ -1,5 +1,5 @@
 """The lower-precision control: the reference with float8 e4m3 operands
-(harness/reference.py ``fp8``) put in the program's place comes out not
+(harness/quant.py ``fp8``) put in the program's place comes out not
 correct under each cell's limits. On the CPU at a small size; with a
 card, also at the cell's own size (``readings.py --control`` there reads
 three seeds or more)."""
@@ -18,14 +18,14 @@ CELLS = ["train_2d_512", "train_3d_192", "serve_2d_512", "serve_3d_192"]
 def control_numbers(cell, device):
     if cell.mix["loop"] == "ana":
         return readings.ana_control(cell, SEED, device)
-    m = cell.model
     pool = loops._pool(cell, SEED)
-    dense = [loops._densify(cell, pool[i], cell.data["weight_mode"])
+    views = [loops._view(cell, pool[i], cell.data["weight_mode"])
              for i in range(cell.mix["check_steps"])]
     from harness import weights
 
-    params, _ = weights.split(weights.make(m, SEED, device, serve=False))
-    ref = loops.train_reference(cell, params, dense, device)
+    params, _ = weights.split(cell, weights.make(cell, SEED, device,
+                                                 serve=False))
+    ref = loops.train_reference(cell, params, views, device)
     return readings.train_control(cell, SEED, device, ref)[0]
 
 

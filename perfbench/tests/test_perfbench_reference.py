@@ -38,10 +38,11 @@ def test_forwards_equal_the_programs(name):
     cell = small.cell(name, compute_dtype="float32")
     m = cell.model
     pool = loops._pool(cell, 3)
-    x = loops._densify(cell, pool[0], "ones")["data"]
-    leaves = weights.make(m, 3, "cpu", serve=True)
-    weights.calibrate(m, leaves, x, "cpu")
-    params, stats = weights.split(leaves)
+    view = loops._view(cell, pool[0], "ones")
+    x = view["data"]
+    leaves = weights.make(cell, 3, "cpu", serve=True)
+    cell.arch.calibrate(cell.config, leaves, view, device="cpu")
+    params, stats = weights.split(cell, leaves)
     prog = loops.Program(cell, leaves, "cpu")
     xt = torch.from_numpy(x)
     with torch.no_grad(), reference.true_f32():
