@@ -41,6 +41,18 @@ configs/train_3d_192.yaml, with random seeded weights:
                 (phases 7 and 9 count the launches of the main path's
                 steps: each kernel once per BatchNorm module a step, 55
                 in 2D and 45 in 3D);
+  3c. sparse — the sparse U-ResNet's conv kernels (csrc/sparse_conv.cu:
+                the pipelined gather-GEMM and weight-gradient kernels and
+                their forms for channels off 8) vs their plain versions in
+                bf16 at every level's shapes of one 16-event batch at
+                768^3 (perfbench's sparse_uresnet3d_768): the submanifold
+                conv with its residual, the stem, the first decoder
+                block's 2C -> C conv and 1x1 map, Down, Up, the head into
+                f32 with its bias; each level's submanifold conv timed
+                beside its bound (level 3's plain versions too); one
+                ``Trainer.train_step_light`` whose launches must be every
+                conv once forward, once for its weight gradient and, but
+                the stem, once for its input gradient (61, 60, 61);
   4. serve    — 64 synthetic 512^2 events through ``python -m
                 uresnet_tpu_torch.cli.infer`` (2 batches of 32, the default
                 streamed sparse export) from a checkpoint in the JAX npz
@@ -199,7 +211,7 @@ build/uresnet_tpu_torch/smoke/ in the checkout.
 
     python3 chip_smoke.py --kernels-only
 
-runs phases 1-3b alone (a short check of the kernels) and prints no result
+runs phases 1-3c alone (a short check of the kernels) and prints no result
 line; ``--parallel-only`` runs the build and phases 13-14 (with two or more
 cards their NCCL legs alone: the run for a four-card machine) and prints
 no result line; ``--packed-only`` the build and phase 15. ``--dp-worker MODE SPEC`` is one rank of phase 11 (modes
@@ -286,7 +298,7 @@ FWD_MAX_SOFTMAX_DIFF, FWD_MIN_AGREE = 0.05, 0.98
 # the bf16 conv's f32 weight gradient vs the float64 product of the same
 # bf16 operands, relative to its max: bf16 rounding would be ~4e-3
 DW_REL = 1e-5
-KERNELS_ONLY = False  # phases 1-3b alone (--kernels-only)
+KERNELS_ONLY = False  # phases 1-3c alone (--kernels-only)
 # kernel-name fragments of layout conversions (cuDNN's nchwToNhwc-style
 # transposes, torch's permute copies)
 LAYOUT_KERNELS = ("nchwtonhwc", "nhwctonchw", "transpose", "permute",
@@ -948,6 +960,182 @@ def bn_phase(dev, card):
         torch.cuda.empty_cache()
     print(f"[bn]      phase 3b wall {time.time() - t0:.1f} s | {card}",
           flush=True)
+    return rec
+
+
+# phase 3c: the sparse U-ResNet's conv kernels (ops/cuda/sparse_conv.py) at
+# the shapes of one training batch of perfbench's sparse_uresnet3d_768:
+# 16 synthetic events at 768^3, base 16, 6 levels of 16-96 channels
+SPARSE = {
+    "model": {"arch": "sparse_uresnet", "dims": 3, "depth": 5,
+              "base_filters": 16, "blocks_per_level": 2, "num_class": 3,
+              "in_channels": 1, "bn_eps": 1e-4, "bn_momentum": 0.9,
+              "compute_dtype": "bfloat16", "param_dtype": "float32"},
+    "data": {"image_size": 768, "batch_size": 16, "planes": [0],
+             "max_points": 131072, "weight_mode": "class_balance"},
+}
+# kernel vs plain on the same bf16 operands: the forward and the input
+# gradient round one f32 sum of the same products to bf16 on both sides
+# (check_close's bf16 bound); the weight gradient sums up to ~1e6 products
+# in another order (with atomics) in f32: 1e-4 of its max
+SPARSE_WGRAD_REL = 1e-4
+
+
+def sparse_phase(dev, card):
+    """Phase 3c: the three sparse conv ops against their plain versions on
+    the card in bf16, at every level's shapes of one 768^3 batch (the
+    submanifold conv C_l -> C_l with the residual, the stem 1 -> 16, the
+    first decoder block's 2 C_l -> C_l and its 1x1 map, Down and Up, the
+    head with its bias into f32); then one train step of the main path
+    (Trainer.train_step_light), whose launches must be every conv's
+    forward, input gradient (not the stem's) and weight gradient once.
+    Returns the record of the kernels row."""
+    from uresnet_tpu_torch import load_config
+    from uresnet_tpu_torch.data.pipeline import sparse_batch
+    from uresnet_tpu_torch.data.synthetic import generate_event
+    from uresnet_tpu_torch.engine.trainer import Trainer
+    from uresnet_tpu_torch.models.sparse_uresnet import (conv_launches,
+                                                         planes)
+    from uresnet_tpu_torch.ops import sparse as sp
+    from uresnet_tpu_torch.ops.cuda import sparse_conv as sc
+
+    t0 = time.time()
+    rng = np.random.default_rng(SEED + 33)
+    d = SPARSE["data"]
+    S = d["image_size"]
+    events = [generate_event(rng, shape=(S,) * 3, planes=(0,))
+              for _ in range(d["batch_size"])]
+    host = sparse_batch(events, planes=(0,), max_points=d["max_points"],
+                        ndims=3)
+    path = os.path.join(WORK, "sparse.json")
+    with open(path, "w") as f:
+        json.dump(SPARSE, f)
+    cfg = load_config(path)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in host.items()}
+    prep = sp.prepare_for(cfg, batch)
+    prep.rules = sp.rulebook(prep)
+    rb = prep.rules
+    C = planes(cfg.model)
+    print(f"[sparse]  {d['batch_size']} events at {S}^3, "
+          f"{int(host['npoints'].sum())} points; sites by level "
+          f"{[lv.n for lv in rb.levels]}, neighbours a site "
+          f"{[round(lv.nbr.n_pairs / lv.n, 2) for lv in rb.levels]} "
+          f"({time.time() - t0:.1f} s)", flush=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 34)
+
+    def rnd(*s, dtype=torch.bfloat16):
+        return torch.randn(*s, generator=g, device=dev).to(dtype)
+
+    rec = {"launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+           "bound_ms": 0.0, "library_ms": float("nan"), "bound_by": "operations"}
+    before = (sc.launches_sparse_conv_fwd, sc.launches_sparse_conv_dgrad,
+              sc.launches_sparse_conv_wgrad)
+    cases = []  # (name, rule, back, mirror, n_in, cin, cout, K)
+    for i, lv in enumerate(rb.levels):
+        cases.append((f"SC l{i} {C[i]}->{C[i]}", lv.nbr, lv.nbr, True, lv.n,
+                      C[i], C[i], 27))
+        if i < len(C) - 1:
+            up = rb.levels[i + 1].n
+            cases += [(f"SC l{i} {2 * C[i]}->{C[i]}", lv.nbr, lv.nbr, True,
+                       lv.n, 2 * C[i], C[i], 27),
+                      (f"1x1 l{i} {2 * C[i]}->{C[i]}", sp.IDENTITY,
+                       sp.IDENTITY, False, lv.n, 2 * C[i], C[i], 1),
+                      (f"Down l{i} {C[i]}->{C[i + 1]}", rb.down[i], rb.up[i],
+                       False, lv.n, C[i], C[i + 1], 8),
+                      (f"Up l{i + 1} {C[i + 1]}->{C[i]}", rb.up[i],
+                       rb.down[i], False, up, C[i + 1], C[i], 8)]
+    cases += [("stem 1->16", rb.levels[0].nbr, rb.levels[0].nbr, True,
+               rb.levels[0].n, 1, C[0], 27),
+              ("head 16->3", sp.IDENTITY, sp.IDENTITY, False,
+               rb.levels[0].n, C[0], 3, 1)]
+    worst = [0.0, 0.0, 0.0]
+    for name, rule, back, mirror, n_in, cin, cout, K in cases:
+        x, w = rnd(n_in, cin), rnd(K, cin, cout) * (1.0 / np.sqrt(K * cin))
+        head = name.startswith("head")
+        n_out = n_in if rule.table is None else rule.table.shape[1]
+        res = None if head else rnd(n_out, cout)
+        bias = rnd(cout, dtype=torch.float32) if head else None
+        y = sc.sparse_conv_fwd(x, w, rule.table, res, bias, out_f32=head)
+        want = sc.sparse_conv_fwd_reference(x, w, rule.table, res, bias, head)
+        e0 = check_close(y, want, torch.float32 if head else torch.bfloat16)[1]
+        dy = rnd(n_out, cout)
+        dx = sc.sparse_conv_dgrad(dy, w, back.table, mirror=mirror)
+        e1 = check_close(dx, sc.sparse_conv_dgrad_reference(
+            dy, w, back.table, mirror), torch.bfloat16)[1]
+        dw = sc.sparse_conv_wgrad(x, dy, rule.table, rule.pairs, rule.chunk_k,
+                                  K)
+        dw_want = sc.sparse_conv_wgrad_reference(x, dy, rule.table, None,
+                                                 None, K)
+        e2 = rel_err(dw, dw_want)
+        if not e2 <= SPARSE_WGRAD_REL:
+            raise AssertionError(f"sparse {name}: weight gradient off by "
+                                 f"{e2:.3e} of its max")
+        worst = [max(a, b) for a, b in zip(worst, (e0, e1, e2))]
+    torch.cuda.synchronize()
+    n = [a - b for a, b in zip((sc.launches_sparse_conv_fwd,
+                                sc.launches_sparse_conv_dgrad,
+                                sc.launches_sparse_conv_wgrad), before)]
+    if n != [len(cases)] * 3:
+        raise AssertionError(f"sparse: launches {n} for {len(cases)} cases")
+    rec["max_abs_err"] = max(worst)
+    print(f"[sparse]  {len(cases)} cases (SC at 6 levels, 2C->C, 1x1, Down, "
+          f"Up, stem, head) kernel vs plain in bf16: worst error over the "
+          f"max: fwd {worst[0]:.2e}, dgrad {worst[1]:.2e}, wgrad "
+          f"{worst[2]:.2e} (limit {SPARSE_WGRAD_REL})", flush=True)
+
+    # each level's submanifold conv C_l -> C_l timed: forward, input and
+    # weight gradient, beside the bound of its operations (level 3's
+    # plain versions too)
+    for i, lv in enumerate(rb.levels):
+        c = C[i]
+        x, w, dy = rnd(lv.n, c), rnd(27, c, c), rnd(lv.n, c)
+        flop = 2 * lv.nbr.n_pairs * c * c
+        calls = (lambda: sc.sparse_conv_fwd(x, w, lv.nbr.table, None, None),
+                 lambda: sc.sparse_conv_dgrad(dy, w, lv.nbr.table,
+                                              mirror=True),
+                 lambda: sc.sparse_conv_wgrad(x, dy, lv.nbr.table,
+                                              lv.nbr.pairs, lv.nbr.chunk_k,
+                                              27))
+        ms = [time_ms(f, reps=3, inner=3) for f in calls]
+        line = (f"[sparse]  level {i} SC {c}->{c} ({lv.n} sites, "
+                f"{lv.nbr.n_pairs} pairs): fwd {ms[0]:.3f} ms, dgrad "
+                f"{ms[1]:.3f}, wgrad {ms[2]:.3f} "
+                f"({3 * flop / sum(ms) / 1e9:.1f} TFLOP/s; bound "
+                f"{3 * flop / BF16_PEAK * 1e3:.3f} ms)")
+        if i == 3:
+            plain = (lambda: sc.sparse_conv_fwd_reference(
+                         x, w, lv.nbr.table, None, None, False),
+                     lambda: sc.sparse_conv_dgrad_reference(
+                         dy, w, lv.nbr.table, True),
+                     lambda: sc.sparse_conv_wgrad_reference(
+                         x, dy, lv.nbr.table, None, None, 27))
+            pms = [time_ms(f, reps=3) for f in plain]
+            rec.update(ms=sum(ms), plain_ms=sum(pms),
+                       bound_ms=3 * flop / BF16_PEAK * 1e3)
+            line += f"; plain {pms[0]:.3f}, {pms[1]:.3f}, {pms[2]:.3f} ms"
+        print(f"{line} | {card}", flush=True)
+
+    # one train step of the main path
+    tr = Trainer(cfg, device=dev)
+    ts = tr.init_state()
+    before = (sc.launches_sparse_conv_fwd, sc.launches_sparse_conv_dgrad,
+              sc.launches_sparse_conv_wgrad)
+    ts, met = tr.train_step_light(ts, tr.device_batch(host))
+    loss = float(met["loss"])
+    n = [a - b for a, b in zip((sc.launches_sparse_conv_fwd,
+                                sc.launches_sparse_conv_dgrad,
+                                sc.launches_sparse_conv_wgrad), before)]
+    want = list(conv_launches(ts.model))
+    if n != want or not np.isfinite(loss):
+        raise AssertionError(f"sparse train step: launches {n}, want {want}; "
+                             f"loss {loss}")
+    rec["launches"] = sum(n)
+    print(f"[sparse]  one train_step_light at {S}^3, batch "
+          f"{d['batch_size']}: loss {loss:.5f}, launches fwd/dgrad/wgrad "
+          f"{n} = every conv once each way ({time.time() - t0:.1f} s in the "
+          f"phase) | {card}", flush=True)
+    del tr, ts
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -3544,8 +3732,9 @@ def main():
     f32_rec = f32_phase(fused_mod, fold, serve32, cfg, dev, card, f32_worst)
     tail_rec = ragged_phase(fused_mod, cfg, dev, card)
     v1_rec = v1_phase(fused_mod, cfg, dev)
-    # 3b. train BN's kernels
+    # 3b. train BN's kernels; 3c. the sparse U-ResNet's conv kernels
     bn_rec = bn_phase(dev, card)
+    sparse_rec = sparse_phase(dev, card)
     if KERNELS_ONLY:
         return
 
@@ -3690,7 +3879,11 @@ def main():
         dict(name="train BN: stats, apply, grad_reduce, grad_input (bf16, "
                   "the three BN_CASES)",
              replaces="none (XLA-generated train BN, uresnet_tpu/ops/norm.py)",
-             source="uresnet_tpu_torch/csrc/bn_train.cu", **bn_rec)]
+             source="uresnet_tpu_torch/csrc/bn_train.cu", **bn_rec),
+        dict(name="sparse conv: fwd, dgrad, wgrad (bf16, level 3's "
+                  "submanifold conv of a 768^3 batch)",
+             replaces="none (the sparse U-ResNet, models/sparse_uresnet.py)",
+             source="uresnet_tpu_torch/csrc/sparse_conv.cu", **sparse_rec)]
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": k["launches"],

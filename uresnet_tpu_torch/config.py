@@ -20,6 +20,7 @@ dataclass config as the primary representation and provide:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -70,6 +71,36 @@ class ModelConfig:
                                      # (bench-gated: measured neutral at 512^2
                                      # base16 — relayouts+bwd eat the conv
                                      # gain; may win at smaller base_filters)
+    # the architecture, ``arch``: "uresnet" (the dense U-ResNet,
+    # models/uresnet.py) or "sparse_uresnet" (the submanifold sparse
+    # U-ResNet of arXiv:1903.05663, models/sparse_uresnet.py: depth + 1
+    # levels of base_filters * (level + 1) channels). A keyword of
+    # __init__ kept as an attribute, not a field (`_with_arch`), so that
+    # the fields stay the JAX package's one for one
+    # (tests/test_torch_data.py), which has one architecture.
+    arch = "uresnet"
+
+
+def _with_arch(init):
+    """ModelConfig's __init__ with the ``arch`` keyword. It is not a field:
+    asdict and dataclasses.replace see the fields alone, so a replace
+    gives the dense net unless ``arch`` is passed again; `Config.to_dict`
+    writes it."""
+    @functools.wraps(init)
+    def __init__(self, *args, arch: str = "uresnet", **kwargs):
+        init(self, *args, **kwargs)
+        self.arch = arch
+    return __init__
+
+
+ModelConfig.__init__ = _with_arch(ModelConfig.__init__)
+
+
+def is_sparse(model) -> bool:
+    """Whether a model config selects the sparse U-ResNet. A config without
+    ``arch`` (the JAX package's, which the tests hand to the port) is the
+    dense net's."""
+    return getattr(model, "arch", "uresnet") == "sparse_uresnet"
 
 
 @dataclass
@@ -213,7 +244,14 @@ class Config:
         return dataclasses.replace(self, **kw)
 
     def to_dict(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+        """The fields as nested dicts, with ``model.arch`` where it is not
+        the dense net's (an attribute, not a field: `_with_arch`), so that
+        `load_config` of the dict's JSON gives the same architecture."""
+        d = dataclasses.asdict(self)
+        arch = getattr(self.model, "arch", "uresnet")
+        if arch != "uresnet":
+            d["model"]["arch"] = arch
+        return d
 
 
 # ---------------------------------------------------------------------------

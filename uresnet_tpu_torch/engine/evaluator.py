@@ -40,6 +40,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from uresnet_tpu_torch.config import is_sparse
 from uresnet_tpu_torch.data import events as ev
 from uresnet_tpu_torch.data.device_pipeline import (crop_origin,
                                                     densify_on_device,
@@ -51,9 +52,11 @@ from uresnet_tpu_torch.engine.export import build_logits_fn
 from uresnet_tpu_torch.engine.losses import softmax_xent_per_pixel
 from uresnet_tpu_torch.engine.metrics import (loss_from_counts,
                                               metrics_from_counts,
-                                              reduce_counts,
+                                              reduce_counts, site_counts,
                                               segmentation_counts)
 from uresnet_tpu_torch.engine.profiling import annotate
+from uresnet_tpu_torch.models import sparse_uresnet
+from uresnet_tpu_torch.ops import sparse as sparse_ops
 from uresnet_tpu_torch.parallel.mesh import all_reduce_counts
 
 
@@ -161,7 +164,10 @@ def _ana_step_sparse(cfg, logits_fn, batch) -> Dict[str, torch.Tensor]:
     the points (B, P, C) and the crop ``origin`` (B, D). With a
     ``row_valid`` (B,) leaf, also the confusion counts of the valid rows
     (the sparse export); without it, points only (the tiled pass rebuilds
-    its metrics from the exported points)."""
+    its metrics from the exported points). The sparse U-ResNet's step
+    (`_ana_step_points`) gives the same keys."""
+    if is_sparse(cfg.model):
+        return _ana_step_points(cfg, logits_fn, batch)
     S = cfg.data.image_size
     sparse = {k: v for k, v in batch.items() if k != "row_valid"}
     with annotate("uresnet.ana.densify"):
@@ -179,13 +185,40 @@ def _ana_step_sparse(cfg, logits_fn, batch) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _ana_step_points(cfg, logits_fn, batch) -> Dict[str, torch.Tensor]:
+    """The sparse U-ResNet's ana step: the batch's point rows and rulebook,
+    the forward at the active sites, their softmax scores at the points
+    (B, P, C) (zeros at padding), the window's ``origin`` (that of
+    densify_on_device) and, with ``row_valid``, the counts of
+    `site_counts`: the pixels are the active sites."""
+    sparse = {k: v for k, v in batch.items() if k != "row_valid"}
+    with annotate("uresnet.ana.rulebook"):
+        prep = sparse_ops.prepare_for(cfg, sparse, weight_mode="ones")
+        prep.rules = sparse_ops.rulebook(prep)
+    with annotate("uresnet.ana.forward"):
+        logits = logits_fn(prep)
+    with annotate("uresnet.ana.scores"):
+        out = {"pscores": prep.at_points(torch.softmax(logits, dim=-1)),
+               "origin": prep.origin}
+        if "row_valid" in batch:
+            out.update(site_counts(logits, prep,
+                                   num_class=cfg.model.num_class,
+                                   row_valid=batch["row_valid"]))
+    return out
+
+
 @torch.inference_mode()
 def _count_step(trainer, logits_fn, batch) -> Dict[str, torch.Tensor]:
     """Exact-evaluation step: forward + sum-form counts with the padded
     tail rows masked by the ``row_valid`` leaf, and the masked loss sums."""
     row_valid = batch["row_valid"].float()
-    prep = trainer._prepare({k: v for k, v in batch.items()
-                             if k != "row_valid"})
+    rows = {k: v for k, v in batch.items() if k != "row_valid"}
+    if trainer.sparse:
+        prep = trainer._sparse_batch(rows)
+        return site_counts(logits_fn(prep), prep,
+                           num_class=trainer.cfg.model.num_class,
+                           row_valid=row_valid, loss_sums=True)
+    prep = trainer._prepare(rows)
     logits = logits_fn(prep["data"])
     counts = segmentation_counts(logits, prep["label"], prep["data"],
                                  num_class=trainer.cfg.model.num_class,
@@ -646,6 +679,12 @@ def run_inference(
     if export not in ("auto", "dense", "sparse"):
         raise ValueError(f"unknown export mode {export!r}")
     cfg = trainer.cfg
+    if is_sparse(cfg.model):
+        sparse_uresnet.refuse(*[mode for mode, on in (
+            ("tiled inference", tiled),
+            ("host inference (streamed=False)", not streamed),
+            ("a dense export", export == "dense")) if on],
+            hint=": it scores points only")
     n = ev.num_events(input_file)
     planes = tuple(cfg.data.planes)
     num_class = cfg.model.num_class

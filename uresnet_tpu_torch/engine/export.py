@@ -40,9 +40,10 @@ from torch import nn
 
 # registers the fused conv ops the exported graph calls
 from uresnet_tpu_torch.ops.cuda import conv2d as _fused_ops  # noqa: F401
-from uresnet_tpu_torch.config import Config, ModelConfig
+from uresnet_tpu_torch.config import Config, ModelConfig, is_sparse
 from uresnet_tpu_torch.models.convert import (flatten_tree, trees,
                                               unflatten_tree)
+from uresnet_tpu_torch.models import sparse_uresnet
 from uresnet_tpu_torch.models.fold import (fold_batchnorm, kernel_operands,
                                             uresnet_apply_folded)
 from uresnet_tpu_torch.models.uresnet import UResNet
@@ -75,7 +76,18 @@ def build_logits_fn(cfg: Config,
 
     BN is folded and the kernel operands are made once, here: call this
     once per pass over the data, not per batch. The fold equals the eval
-    forward (tests/test_torch_model.py)."""
+    forward (tests/test_torch_model.py).
+
+    The sparse U-ResNet (``model.arch`` 'sparse_uresnet') has no fold: its
+    BN runs before a ReLU and a conv. Its logits function takes a
+    `SparseBatch` with its rulebook (ops/sparse.py) and gives the f32
+    logits (n_0, num_class) of its sites, in eval mode."""
+    if is_sparse(cfg.model):
+        @torch.inference_mode()
+        def sparse_logits(batch) -> torch.Tensor:
+            return model(batch, train=False)[0]
+
+        return sparse_logits
     mcfg, folded = _folded(cfg, model)
 
     @torch.inference_mode()
@@ -85,10 +97,17 @@ def build_logits_fn(cfg: Config,
     return logits_fn
 
 
+def _dense_only(cfg: Config, what: str) -> None:
+    if is_sparse(cfg.model):
+        sparse_uresnet.refuse(what, hint=": it scores point batches "
+                              "(engine/evaluator.py)")
+
+
 def build_serving_fn(cfg: Config,
                      model: UResNet) -> Callable[[torch.Tensor], torch.Tensor]:
     """x (B, *S, C_in) normalized charge image or volume, on the model's
     device -> f32 per-pixel softmax scores (B, *S, num_class)."""
+    _dense_only(cfg, "a dense serving function")
     logits_fn = build_logits_fn(cfg, model)
 
     @torch.inference_mode()
@@ -154,6 +173,7 @@ def export_serving(
     as (payload_bytes, metadata_dict). The metadata equals the JAX
     package's for the same config, weights and step, but for ``format``
     and ``platforms`` (torch device types the artifact may be loaded on)."""
+    _dense_only(cfg, "a .uxm serving artifact")
     B = batch_size or cfg.data.batch_size
     S = image_size or cfg.data.image_size
     in_shape = (B,) + (S,) * cfg.model.dims + (cfg.model.in_channels,)

@@ -13,6 +13,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from uresnet_tpu_torch.engine.losses import softmax_xent_per_pixel
+
 
 def segmentation_metrics(logits: torch.Tensor, labels: torch.Tensor,
                          data: torch.Tensor, *,
@@ -75,6 +77,38 @@ def segmentation_counts(logits: torch.Tensor, labels: torch.Tensor,
         "correct_nonzero": (correct * nonzero).sum(spatial),
         "n_nonzero": nonzero.sum(spatial),
     }
+
+
+def site_counts(logits: torch.Tensor, batch, *, num_class: int,
+                row_valid: Optional[torch.Tensor] = None,
+                loss_sums: bool = False) -> Dict[str, torch.Tensor]:
+    """`segmentation_counts` of the sparse net: logits (n, C) at the sites
+    of ``batch`` (a `SparseBatch`, ops/sparse.py), whose sites are the
+    pixels. Per-row confusion counts (B, C, C) and nonzero counts (B,),
+    ``row_valid`` (B,) masking padded rows; with ``loss_sums`` the masked
+    xent sums ``loss_num`` and ``weight_sum`` of engine/evaluator.py."""
+    B, event = batch.batch_size, batch.event
+    pred = torch.argmax(logits, dim=-1)
+    labels = batch.label.to(pred.dtype)
+    valid = (torch.ones(B, device=pred.device) if row_valid is None
+             else row_valid.float())
+    keep = valid[event]
+    conf = torch.zeros(B * num_class * num_class, device=pred.device)
+    conf.index_add_(0, (event * num_class + pred) * num_class + labels, keep)
+    nonzero = (batch.feats.abs().sum(-1) > 0).float() * keep
+    correct = (pred == labels).float()
+    per_row = torch.zeros((2, B), device=pred.device)
+    per_row[0].index_add_(0, event, correct * nonzero)
+    per_row[1].index_add_(0, event, nonzero)
+    out = {"conf": conf.reshape(B, num_class, num_class),
+           "n_pixels": keep.sum(), "correct_nonzero": per_row[0],
+           "n_nonzero": per_row[1]}
+    if loss_sums:
+        w = batch.weight.float() * keep
+        out["loss_num"] = torch.sum(w * softmax_xent_per_pixel(logits,
+                                                               batch.label))
+        out["weight_sum"] = torch.sum(w)
+    return out
 
 
 def reduce_counts(counts: Dict[str, Any]) -> Dict[str, np.ndarray]:

@@ -25,6 +25,19 @@ weight scattered straight into it), as the JAX trainer does; evaluation
 and the serving export stay canonical in both packages.
 ``steps_per_dispatch = K`` runs K plain steps per loop turn.
 
+``model.arch = "sparse_uresnet"`` trains the submanifold sparse U-ResNet
+(models/sparse_uresnet.py) on the same loop: its step turns the padded
+sparse batch into point rows with their labels and class weights
+(ops/sparse.py ``prepare``, span ``uresnet.train.densify``, though nothing
+is densified) and builds the batch's rulebook (``uresnet.train.rulebook``);
+the loss is over the active voxels, and ``_loss_fn`` hands its logits in
+the batch's padded layout (B, P, K), zeros at padding. Under data
+parallelism the ranks hold unequal numbers of sites, so a rank's loss
+divides by the global batch's site count or weight sum. It refuses what
+it has no form of (models/sparse_uresnet.py ``refuse_train_modes``):
+``model.pack``, ``model.remat``, ``data.augment``, a dense transfer, and
+tensor or spatial parallelism.
+
 Data parallelism (parallel/mesh.py): one process per device, each with a
 replica of the train state and ``1/world`` of the global batch
 (``data.batch_size`` stays the global size; the loader reads every
@@ -65,7 +78,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from uresnet_tpu_torch.config import Config
+from uresnet_tpu_torch.config import Config, is_sparse
 from uresnet_tpu_torch.data.loader import make_batch_loader
 from uresnet_tpu_torch.engine.logging import MetricsLogger, NullLogger
 from uresnet_tpu_torch.data.device_pipeline import (densify_on_device,
@@ -78,7 +91,7 @@ from uresnet_tpu_torch.engine.losses import (softmax_xent_per_pixel,
                                              weighted_softmax_xent)
 from uresnet_tpu_torch.engine.metrics import (loss_from_counts,
                                               metrics_from_counts,
-                                              reduce_counts,
+                                              reduce_counts, site_counts,
                                               segmentation_counts,
                                               segmentation_metrics)
 from uresnet_tpu_torch.engine.optim import (AdamState, adam_init, adam_update,
@@ -89,7 +102,10 @@ from uresnet_tpu_torch.models.convert import (flatten_tree, jax_train_state,
 from uresnet_tpu_torch.models.fold import KERNEL_BACKENDS
 from uresnet_tpu_torch.models.packed import (_hpack_level, loss_layout_phases,
                                              pack_like_logits)
+from uresnet_tpu_torch.models import sparse_uresnet
+from uresnet_tpu_torch.models.sparse_uresnet import SparseUResNet
 from uresnet_tpu_torch.models.uresnet import UResNet
+from uresnet_tpu_torch.ops import sparse as sparse_ops
 from uresnet_tpu_torch.parallel import tp
 from uresnet_tpu_torch.parallel.mesh import (Mesh, all_reduce_counts,
                                              all_reduce_max, all_reduce_mean,
@@ -108,6 +124,10 @@ def _key_seed(key: np.ndarray) -> int:
     return (int(key[0]) << 32) | int(key[1])
 
 
+def _next_key(key: np.ndarray) -> np.ndarray:
+    return np.array([key[0], (int(key[1]) + 1) & 0xFFFFFFFF], np.uint32)
+
+
 _IMAGE_KEYS = ("data", "label", "weight")
 
 
@@ -118,6 +138,19 @@ class Trainer:
         # --distributed joins it (parallel/mesh.py init_distributed)
         n_spatial = mesh.spatial if mesh else max(1, cfg.parallel.spatial)
         n_model = mesh.model if mesh else max(1, cfg.parallel.model)
+        arch = getattr(cfg.model, "arch", "uresnet")
+        if arch not in ("uresnet", "sparse_uresnet"):
+            raise ValueError(f"unknown model.arch {arch!r}: 'uresnet' or "
+                             f"'sparse_uresnet'")
+        self.sparse = is_sparse(cfg.model)
+        self._net = SparseUResNet if self.sparse else UResNet
+        if self.sparse:
+            # the architecture's steps are chosen here; only _loss_fn, which
+            # perfbench's harness wraps on the instance, tests it again
+            sparse_uresnet.refuse_train_modes(cfg, n_model=n_model,
+                                              n_spatial=n_spatial)
+            self._train_step = self._train_step_sparse
+            self._eval_step = self._eval_step_sparse
         if n_model > 1 and cfg.model.pack:
             raise ValueError(
                 "parallel.model > 1 (tensor parallelism) requires the "
@@ -180,9 +213,9 @@ class Trainer:
 
     def _new_model(self, device, seed: Optional[int] = None) -> UResNet:
         seed = self.cfg.train.seed if seed is None else seed
-        return UResNet(self.cfg.model,
-                       generator=torch.Generator().manual_seed(seed),
-                       device=device)
+        return self._net(self.cfg.model,
+                         generator=torch.Generator().manual_seed(seed),
+                         device=device)
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """The seed's initial state; under a model axis, this rank's
@@ -296,6 +329,8 @@ class Trainer:
         with 'mean' the local mean, with 'weight_sum' the local sum over the
         global batch's weight sum. The ranks of a model axis compute the
         same loss."""
+        if self.sparse:
+            return self._loss_fn_sparse(model, batch)
         group = self.mesh.batch.group
         normalize = self.cfg.train.loss_normalize
         ph = self._loss_phases
@@ -319,19 +354,53 @@ class Trainer:
                                              normalize=normalize)
         return loss, logits, new_state
 
+    def _loss_fn_sparse(self, model, batch: sparse_ops.SparseBatch):
+        """(loss, logits, new BN state) of the sparse net: the weighted
+        softmax cross-entropy over the batch's active sites, the logits at
+        the batch's points (B, P, K), zeros at padding. Under a batch group
+        the ranks hold unequal numbers of sites, so a rank's loss is its
+        sum over the global batch's site count ('mean') or weight sum
+        ('weight_sum'), times the group's size: `_loss_fn`'s contract."""
+        group = self.mesh.batch.group
+        normalize = self.cfg.train.loss_normalize
+        with annotate("uresnet.train.forward"):
+            rows, new_state = model(batch, train=True, mesh=self.mesh)
+        with annotate("uresnet.train.loss"):
+            if group is None:
+                loss = weighted_softmax_xent(rows, batch.label, batch.weight,
+                                             normalize=normalize)
+            else:
+                w = batch.weight.float()
+                if normalize == "weight_sum":
+                    den = w.sum()
+                elif normalize == "mean":
+                    den = w.new_tensor(float(w.numel()))
+                else:
+                    raise ValueError(f"unknown normalize mode {normalize!r}")
+                den = all_reduce_sum(den, group)
+                loss = (torch.sum(w * softmax_xent_per_pixel(rows, batch.label))
+                        * self.mesh.batch.size / torch.clamp(den, min=1e-6))
+            logits = batch.at_points(rows)
+        return loss, logits, new_state
+
     def _global_counts(self, logits, batch, group, *, loss_sums=False
                        ) -> Dict[str, np.ndarray]:
         """The batch's confusion counts (and with ``loss_sums`` the masked
         xent sums of engine/evaluator.py), summed over ``group``."""
-        counts = {k: v.cpu() for k, v in segmentation_counts(
-            logits, batch["label"], batch["data"],
-            num_class=self.cfg.model.num_class).items()}
+        counts = segmentation_counts(logits, batch["label"], batch["data"],
+                                     num_class=self.cfg.model.num_class)
         if loss_sums:
             w = batch["weight"].float()
             counts["loss_num"] = torch.sum(
-                w * softmax_xent_per_pixel(logits, batch["label"])).cpu()
-            counts["weight_sum"] = torch.sum(w).cpu()
-        return all_reduce_counts(reduce_counts(counts), group, self.device)
+                w * softmax_xent_per_pixel(logits, batch["label"]))
+            counts["weight_sum"] = torch.sum(w)
+        return self._summed(counts, group)
+
+    def _summed(self, counts: Dict[str, torch.Tensor], group
+                ) -> Dict[str, np.ndarray]:
+        """Device count leaves reduced on the host, summed over ``group``."""
+        return all_reduce_counts(reduce_counts(
+            {k: v.cpu() for k, v in counts.items()}), group, self.device)
 
     def _train_step(self, ts: TrainState, batch: Dict,
                     with_metrics: bool = True) -> Tuple[TrainState, Dict]:
@@ -358,6 +427,32 @@ class Trainer:
                 batch = augment_batch(batch, dims=cfg.model.dims,
                                       decisions=decisions)
             batch = self._local_rows(batch)
+        group = mesh.batch.group
+        loss, logits, opt = self._update(ts, batch)
+        metrics = {"loss": loss}
+        if with_metrics:
+            with annotate("uresnet.train.metrics"):
+                # the targets and the charge in the loss layout: the
+                # per-pixel metrics are layout-invariant
+                label, weight, data = self._targets(batch, logits)
+                if group is not None:
+                    tb = {"label": label, "weight": weight, "data": data}
+                    metrics.update(metrics_from_counts(
+                        self._global_counts(logits.detach(), tb, group)))
+                else:
+                    metrics.update(segmentation_metrics(
+                        logits.detach(), label, data,
+                        num_class=cfg.model.num_class))
+        return TrainState(model=ts.model, opt=opt, key=_next_key(ts.key)), \
+            metrics
+
+    def _update(self, ts: TrainState, batch):
+        """The forward, loss, backward, gradient all-reduce, Adam and the
+        write-back of the params and BN state of one prepared batch:
+        (loss, the loss's logits, the new Adam state). The model of ``ts``
+        is updated in place."""
+        cfg = self.cfg
+        mesh = self.mesh
         group = mesh.batch.group
         model = ts.model
         params = dict(model.named_parameters())
@@ -386,22 +481,45 @@ class Trainer:
                 flat = dict(model.named_buffers())
                 for k, v in flatten_tree(new_state).items():
                     flat[k].data = v
+        return loss, logits, opt
+
+    def _sparse_rows(self, batch: Dict) -> sparse_ops.SparseBatch:
+        """The sparse net's point rows of a padded sparse batch, with
+        their labels and loss weights, sorted for the rulebook."""
+        if "coords" not in batch:
+            raise ValueError("the sparse U-ResNet takes sparse batches "
+                             "(data.transfer: sparse), got a dense one")
+        return sparse_ops.prepare_for(self.cfg, batch)
+
+    def _sparse_batch(self, batch: Dict) -> sparse_ops.SparseBatch:
+        """`_sparse_rows` with the rulebook."""
+        rows = self._sparse_rows(batch)
+        rows.rules = sparse_ops.rulebook(rows)
+        return rows
+
+    def _train_step_sparse(self, ts: TrainState, batch: Dict,
+                           with_metrics: bool) -> Tuple[TrainState, Dict]:
+        # the densify phase of the dense step: here the point rows, their
+        # labels and class weights (nothing is densified)
+        with annotate("uresnet.train.densify"):
+            batch = self._sparse_rows(batch)
+        with annotate("uresnet.train.rulebook"):
+            batch.rules = sparse_ops.rulebook(batch)
+        loss, logits, opt = self._update(ts, batch)
         metrics = {"loss": loss}
         if with_metrics:
             with annotate("uresnet.train.metrics"):
-                # the targets and the charge in the loss layout: the
-                # per-pixel metrics are layout-invariant
-                label, weight, data = self._targets(batch, logits)
+                K = self.cfg.model.num_class
+                rows = logits.detach().reshape(-1, K)[batch.site_point]
+                group = self.mesh.batch.group
                 if group is not None:
-                    tb = {"label": label, "weight": weight, "data": data}
-                    metrics.update(metrics_from_counts(
-                        self._global_counts(logits.detach(), tb, group)))
+                    metrics.update(metrics_from_counts(self._summed(
+                        site_counts(rows, batch, num_class=K), group)))
                 else:
                     metrics.update(segmentation_metrics(
-                        logits.detach(), label, data,
-                        num_class=cfg.model.num_class))
-        key = np.array([ts.key[0], (int(ts.key[1]) + 1) & 0xFFFFFFFF], np.uint32)
-        return TrainState(model=model, opt=opt, key=key), metrics
+                        rows, batch.label, batch.feats, num_class=K))
+        return TrainState(model=ts.model, opt=opt, key=_next_key(ts.key)), \
+            metrics
 
     def train_step(self, ts: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         """One step with the summary metrics. The model in ``ts`` is updated
@@ -424,6 +542,10 @@ class Trainer:
         over the data axis (host floats)."""
         if logits_fn is None:
             logits_fn = build_logits_fn(self.cfg, self.gather_state(ts).model)
+        return self._eval_step(batch, logits_fn)
+
+    def _eval_step(self, batch: Dict, logits_fn) -> Dict:
+        """`eval_step` of the dense net, after the fold."""
         batch = self._prepare(batch)
         logits = logits_fn(batch["data"])
         group = self.mesh.data_axis.group
@@ -440,6 +562,26 @@ class Trainer:
             normalize=self.cfg.train.loss_normalize)
         return metrics
 
+    def _eval_step_sparse(self, batch: Dict, logits_fn) -> Dict:
+        """`eval_step` of the sparse net, over the batch's active sites."""
+        prep = self._sparse_batch(batch)
+        logits = logits_fn(prep)
+        K = self.cfg.model.num_class
+        normalize = self.cfg.train.loss_normalize
+        group = self.mesh.data_axis.group
+        if group is not None:
+            counts = self._summed(site_counts(logits, prep, num_class=K,
+                                              loss_sums=True), group)
+            metrics = metrics_from_counts(counts)
+            metrics["loss"] = loss_from_counts(counts, normalize)
+            return metrics
+        metrics = segmentation_metrics(logits, prep.label, prep.feats,
+                                       num_class=K)
+        metrics["loss"] = weighted_softmax_xent(logits, prep.label,
+                                                prep.weight,
+                                                normalize=normalize)
+        return metrics
+
     @torch.no_grad()
     def forward(self, ts: TrainState, data) -> torch.Tensor:
         """Inference forward: per-pixel softmax scores (f32, B x *S x
@@ -449,6 +591,11 @@ class Trainer:
         ``forward``: not the BN-folded ``build_logits_fn`` that serving and
         evaluation run. Under a model axis it runs on the gathered state
         (a collective)."""
+        if self.sparse:
+            sparse_uresnet.refuse("Trainer.forward", hint=": it takes dense "
+                                  "images; the sparse net scores point "
+                                  "batches through engine/evaluator.py "
+                                  "(run_inference, evaluate_dataset)")
         x = torch.as_tensor(data, dtype=torch.float32, device=self.device)
         logits, _ = self.gather_state(ts).model(x, train=False)
         return torch.softmax(logits, dim=-1)
